@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface and compiles with `nvcc`
 alone (no PyTorch headers, so a build takes seconds) into
 `build/kernels/lib<name>-<digest>.so` at the repository root; the digest
-covers the source and the flags, so an edited source rebuilds. Libraries are
+covers the source, the shared `csrc/*.cuh` headers and the flags, so an
+edited source rebuilds. Libraries are
 loaded with ctypes. Sources are built in parallel, one nvcc process each.
 """
 from __future__ import annotations
@@ -40,7 +41,9 @@ def sources():
 
 
 def _target(name: str) -> Path:
-  src = (CSRC / f'{name}.cu').read_bytes()
+  # the digest covers the shared headers too: an edited header rebuilds
+  src = b''.join(p.read_bytes() for p in
+                 [CSRC / f'{name}.cu', *sorted(CSRC.glob('*.cuh'))])
   digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
   return BUILD_DIR / f'lib{name}-{digest}.so'
 

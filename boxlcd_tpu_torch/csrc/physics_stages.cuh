@@ -1,0 +1,1178 @@
+// One world's rigid-body substep as device functions, stage by stage after
+// engine/physics.py and engine/collision.py (the port's plain torch path):
+//
+//   integrate_velocities -> collide (walls, body pairs) -> match_impulses ->
+//   init_constraints -> warm_start -> velocity_sweep x vel_iters ->
+//   position_solve (integrate + NGS with Box2D's per-world exit) ->
+//   finalize (island sleeping, warm-start writeback)
+//
+// Each stage keeps physics.py's float32 op order (sources build with
+// --fmad=false, IEEE division and square root), so a world here follows the
+// plain version up to the order of a few sums and cosf/sinf against
+// torch.cos/torch.sin. One thread owns one world; topology and constants
+// come from the SpecF/SpecI tables (filled by engine/mega.py), sized by
+// compile-time maxima that cover the whole env zoo. velocity_sweep and
+// position_solve are the stages the whole-batch solver kernels can reuse.
+#pragma once
+
+#include <math.h>
+
+#define PHYS_FN __device__ __forceinline__
+
+namespace phys {
+
+constexpr int MB = 18;   // bodies (CrabCube)
+constexpr int MJ = 16;   // joint slots
+constexpr int MP = 15;   // body-pair slots
+constexpr int MW = 4;    // walls
+constexpr int MV = 8;    // polygon vertices (engine/geom.py MAX_VERTS)
+
+// Box2D b2Settings constants, rounded to float32 as torch rounds a Python
+// float operand of a float32 op
+constexpr double kPi = 3.141592653589793;
+constexpr float BAUMGARTE = 0.2f;
+constexpr float LINEAR_SLOP = 0.005f;
+constexpr float ANGULAR_SLOP = (float)(2.0 / 180.0 * kPi);
+constexpr float MAX_LINEAR_CORRECTION = 0.2f;
+constexpr float MAX_ANGULAR_CORRECTION = (float)(8.0 / 180.0 * kPi);
+constexpr float VELOCITY_THRESHOLD = 1.0f;
+constexpr float TIME_TO_SLEEP = 0.5f;
+constexpr float LIN_SLEEP_TOL_SQ = (float)(0.01 * 0.01);
+constexpr float ANG_SLEEP_TOL_SQ =
+    (float)((2.0 / 180.0 * 3.14159265) * (2.0 / 180.0 * 3.14159265));
+constexpr float POLY_RADIUS = 0.01f;
+constexpr float TOTAL_R = (float)(2 * 0.01);          // 2 * POLY_RADIUS
+constexpr float BIG = 1e9f;
+constexpr float MIN_SEP_OK = (float)(-3.0 * 0.005);   // -3 * LINEAR_SLOP
+constexpr float FACE_TOL = (float)(0.1 * 0.005);      // 0.1 * LINEAR_SLOP
+
+// Per-spec tables, all float32 / int32 with no padding: engine/mega.py
+// builds them field by field in this order.
+struct SpecF {
+  float dt, exit_tol, dtg[2];
+  float inv_m[MB][2], inv_i[MB][2];      // [circle variant, polygon variant]
+  float lc[MB][2][2];                    // local center per variant
+  float radius[MB];
+  float verts[MB][MV][2];                // polygon vertices about the com
+  float normals[MB][MV][2];
+  float lin_div[MB], ang_div[MB];        // 1 + dt * damping
+  float w_mu[MB], w_e[MB];               // wall friction mix, restitution
+  float wall_n[MW][2], wall_off[MW];
+  float p_mu[MP], p_e[MP];
+  float j_anchor_a[MJ][2], j_anchor_b[MJ][2];
+  float j_lower[MJ], j_upper[MJ], j_cap[MJ], j_validf[MJ];
+};
+
+struct SpecI {
+  int n, nw, jn, nj, np;                 // jn real joints of nj slots
+  int substeps, vel_iters, pos_iters, allow_sleep, label_rounds;
+  int nverts[MB];
+  int pair_a[MP], pair_b[MP], pair_valid[MP];
+  int j_pa[MJ], j_ch[MJ], j_limited[MJ], j_equal[MJ], j_valid[MJ];
+};
+
+// One world's WorldState (engine/physics.py), in the port's dtypes.
+struct State {
+  float cx[MB], cy[MB], a[MB], vx[MB], vy[MB], w[MB], sleep[MB];
+  bool circ[MB];
+  float wc_imp[MB][MW][2][2];
+  int wc_id[MB][MW][2];
+  float pc_imp[MP][2][2];
+  int pc_id[MP][2];
+  float j_imp[MJ][2], j_mot[MJ], j_lim[MJ], j_ref[MJ], prev_motor[MJ];
+  int j_state[MJ];
+};
+
+// A wall contact (body, wall): manifold and solver constants.
+struct WallC {
+  bool touch[2], vtouch[2], block;
+  int ids[2];
+  float rbx[2], rby[2];                  // contact point - com
+  float lpx[2], lpy[2], rad_sub;         // for the position solve
+  float nmass[2], tmass[2], bias[2], kn[2], k12;
+  float imp[2][2];                       // [point][normal, tangent]
+};
+
+// A body-pair contact: manifold and solver constants.
+struct PairC {
+  bool touch[2], vtouch[2], block;
+  int ids[2], mtype;
+  float nx, ny;
+  float rax[2], ray[2], rbx[2], rby[2];
+  float lnx, lny, lppx, lppy, lpsx[2], lpsy[2], rad_sub;
+  float nmass[2], tmass[2], bias[2], kn[2], k12;
+  float imA, imB, iiA, iiB;
+  float imp[2][2];
+};
+
+struct JointC {
+  float rax, ray, rbx, rby, axmass, mA, mB, iA, iB;
+  int state;
+};
+
+// Scratch of one substep.
+struct Work {
+  float inv_m[MB], inv_i[MB], lcx[MB], lcy[MB];   // per episode (is_circle)
+  float cs[MB], sn[MB];
+  float vx[MB], vy[MB], w[MB];                    // the solver's velocities
+  float cx[MB], cy[MB], a[MB];                    // the position solve's poses
+  WallC wc[MB][MW];
+  PairC pc[MP];
+  JointC jc[MJ];
+  float j_imp[MJ][2], j_mot[MJ], j_lim[MJ];
+};
+
+// ---- small vector helpers (physics.py / collision.py op order) -------------
+
+PHYS_FN float dot2(float ax, float ay, float bx, float by) {
+  return ax * bx + ay * by;
+}
+
+PHYS_FN float cross_vv(float ax, float ay, float bx, float by) {
+  return ax * by - ay * bx;
+}
+
+// R(angle) @ x and R(angle)^T @ x
+PHYS_FN void rot(float c, float s, float x, float y, float& ox, float& oy) {
+  ox = c * x - s * y;
+  oy = s * x + c * y;
+}
+
+PHYS_FN void rot_t(float c, float s, float x, float y, float& ox, float& oy) {
+  ox = c * x + s * y;
+  oy = -s * x + c * y;
+}
+
+PHYS_FN float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// ---- narrowphase (collision.py) -------------------------------------------
+
+struct Manifold {
+  float nx, ny, px[2], py[2], sep[2];
+  bool touch[2];
+  int ids[2], mtype;
+  float lnx, lny, lppx, lppy, lpsx[2], lpsy[2], rad_sub;
+};
+
+// World vertices and normals of body b's polygon variant.
+PHYS_FN void world_poly(const SpecF& F, int b, float cx, float cy, float cs,
+                        float sn, int nv, float* wvx, float* wvy, float* wnx,
+                        float* wny) {
+  for (int v = 0; v < nv; ++v) {
+    float rx, ry;
+    rot(cs, sn, F.verts[b][v][0], F.verts[b][v][1], rx, ry);
+    wvx[v] = cx + rx;
+    wvy[v] = cy + ry;
+    rot(cs, sn, F.normals[b][v][0], F.normals[b][v][1], wnx[v], wny[v]);
+  }
+}
+
+PHYS_FN void collide_circles(float ax, float ay, float ra, float bx, float by,
+                             float rb, Manifold& m) {
+  const float dx = bx - ax, dy = by - ay;
+  const float dist = sqrtf(dx * dx + dy * dy);
+  const float dd = fmaxf(dist, 1e-9f);
+  const bool ok = dist > 1e-9f;
+  m.nx = ok ? dx / dd : 0.0f;
+  m.ny = ok ? dy / dd : 1.0f;
+  m.sep[0] = (dist - ra) - rb;
+  m.sep[1] = BIG;
+  m.touch[0] = m.sep[0] <= 0.0f;
+  m.touch[1] = false;
+  const float px = 0.5f * ((ax + ra * m.nx) + (bx - rb * m.nx));
+  const float py = 0.5f * ((ay + ra * m.ny) + (by - rb * m.ny));
+  m.px[0] = m.px[1] = px;
+  m.py[0] = m.py[1] = py;
+  m.ids[0] = m.ids[1] = 0;
+  m.mtype = 0;
+  m.lnx = m.lny = m.lppx = m.lppy = 0.0f;
+  m.lpsx[0] = m.lpsx[1] = m.lpsy[0] = m.lpsy[1] = 0.0f;
+  m.rad_sub = ra + rb;
+}
+
+// Polygon A (world verts/normals) against circle B: face-A manifold with a
+// single point (b2CollidePolygonAndCircle).
+PHYS_FN void collide_poly_circle(const float* wvx, const float* wvy,
+                                 const float* wnx, const float* wny, int nv,
+                                 float cax, float cay, float csA, float snA,
+                                 float cbx, float cby, float rb, Manifold& m) {
+  int best = 0;
+  float max_sep = 0.0f;
+  for (int v = 0; v < nv; ++v) {
+    const float s = dot2(wnx[v], wny[v], cbx - wvx[v], cby - wvy[v]);
+    if (v == 0 || s > max_sep) { max_sep = s; best = v; }
+  }
+  const int nxt = best + 1 < nv ? best + 1 : 0;
+  const float v1x = wvx[best], v1y = wvy[best], v2x = wvx[nxt], v2y = wvy[nxt];
+  const float u1 = dot2(cbx - v1x, cby - v1y, v2x - v1x, v2y - v1y);
+  const float u2 = dot2(cbx - v2x, cby - v2y, v1x - v2x, v1y - v2y);
+  const float fnx = wnx[best], fny = wny[best];
+  const float d1x = cbx - v1x, d1y = cby - v1y;
+  const float l1 = sqrtf(d1x * d1x + d1y * d1y);
+  const float d2x = cbx - v2x, d2y = cby - v2y;
+  const float l2 = sqrtf(d2x * d2x + d2y * d2y);
+  const bool inside = max_sep < 1e-9f;
+  const bool use_v1 = !inside && u1 <= 0.0f;
+  const bool use_v2 = !inside && u2 <= 0.0f && !use_v1;
+  float nx, ny, ppx, ppy, sep_raw;
+  if (use_v1) {
+    const float l = fmaxf(l1, 1e-9f);
+    nx = l1 > 1e-9f ? d1x / l : fnx;
+    ny = l1 > 1e-9f ? d1y / l : fny;
+    ppx = v1x; ppy = v1y; sep_raw = l1;
+  } else if (use_v2) {
+    const float l = fmaxf(l2, 1e-9f);
+    nx = l2 > 1e-9f ? d2x / l : fnx;
+    ny = l2 > 1e-9f ? d2y / l : fny;
+    ppx = v2x; ppy = v2y; sep_raw = l2;
+  } else {
+    nx = fnx; ny = fny;
+    ppx = 0.5f * (v1x + v2x);
+    ppy = 0.5f * (v1y + v2y);
+    sep_raw = dot2(cbx - ppx, cby - ppy, fnx, fny);
+  }
+  m.nx = nx; m.ny = ny;
+  m.sep[0] = (sep_raw - rb) - POLY_RADIUS;
+  m.sep[1] = BIG;
+  m.touch[0] = m.sep[0] <= 0.0f;
+  m.touch[1] = false;
+  const float px = 0.5f * ((cbx - sep_raw * nx) + (cbx - rb * nx));
+  const float py = 0.5f * ((cby - sep_raw * ny) + (cby - rb * ny));
+  m.px[0] = m.px[1] = px;
+  m.py[0] = m.py[1] = py;
+  m.ids[0] = m.ids[1] = 0;
+  m.mtype = 1;
+  rot_t(csA, snA, nx, ny, m.lnx, m.lny);
+  rot_t(csA, snA, ppx - cax, ppy - cay, m.lppx, m.lppy);
+  m.lpsx[0] = m.lpsx[1] = m.lpsy[0] = m.lpsy[1] = 0.0f;
+  m.rad_sub = rb + POLY_RADIUS;
+}
+
+// Max over A's faces of min over B's verts of the face-plane separation.
+PHYS_FN float max_separation(const float* avx, const float* avy,
+                             const float* anx, const float* any, int nva,
+                             const float* bvx, const float* bvy, int nvb,
+                             int& best) {
+  float best_sep = 0.0f;
+  best = 0;
+  for (int k = 0; k < nva; ++k) {
+    const float off = dot2(anx[k], any[k], avx[k], avy[k]);
+    float m = 0.0f;
+    for (int v = 0; v < nvb; ++v) {
+      const float d = dot2(anx[k], any[k], bvx[v], bvy[v]) - off;
+      m = v == 0 ? d : fminf(m, d);
+    }
+    if (k == 0 || m > best_sep) { best_sep = m; best = k; }
+  }
+  return best_sep;
+}
+
+// b2ClipSegmentToLine: keep the sub-segment with dot(n, p) - offset <= 0.
+PHYS_FN bool clip_segment(float& p1x, float& p1y, float& p2x, float& p2y,
+                          int& id1, int& id2, float nx, float ny,
+                          float offset) {
+  const float d1 = dot2(nx, ny, p1x, p1y) - offset;
+  const float d2 = dot2(nx, ny, p2x, p2y) - offset;
+  const float den = d1 - d2;
+  const float t = d1 / (fabsf(den) > 1e-12f ? den : 1e-12f);
+  const float pmx = p1x + t * (p2x - p1x), pmy = p1y + t * (p2y - p1y);
+  const int i1 = d1 <= 0.0f ? id1 : id2 + 16;
+  const int i2 = d2 <= 0.0f ? id2 : id1 + 16;
+  if (!(d1 <= 0.0f)) { p1x = pmx; p1y = pmy; }
+  if (!(d2 <= 0.0f)) { p2x = pmx; p2y = pmy; }
+  id1 = i1;
+  id2 = i2;
+  return fminf(d1, d2) <= 0.0f;
+}
+
+// Clip the incident face of `inc` against reference face `ref_face` of ref.
+PHYS_FN void clip_face(const float* rvx, const float* rvy, const float* rnx,
+                       const float* rny, int nvr, int ref_face, float crx,
+                       float cry, float csr, float snr, const float* ivx,
+                       const float* ivy, const float* inx, const float* iny,
+                       int nvi, float cix, float ciy, float csi, float sni,
+                       bool flip, Manifold& m) {
+  int i2 = (ref_face + 1) % MV;
+  i2 = i2 < nvr ? i2 : 0;
+  const float v1x = rvx[ref_face], v1y = rvy[ref_face];
+  const float v2x = rvx[i2], v2y = rvy[i2];
+  const float nrx = rnx[ref_face], nry = rny[ref_face];
+  int inc = 0;
+  float best = 0.0f;
+  for (int v = 0; v < nvi; ++v) {
+    const float d = dot2(inx[v], iny[v], nrx, nry);
+    if (v == 0 || d < best) { best = d; inc = v; }
+  }
+  int j2 = (inc + 1) % MV;
+  j2 = j2 < nvi ? j2 : 0;
+  float q1x = ivx[inc], q1y = ivy[inc], q2x = ivx[j2], q2y = ivy[j2];
+  int id1 = inc, id2 = j2;
+  float tx = v2x - v1x, ty = v2y - v1y;
+  const float tl = fmaxf(sqrtf(tx * tx + ty * ty), 1e-9f);
+  tx = tx / tl;
+  ty = ty / tl;
+  const bool ok1 = clip_segment(q1x, q1y, q2x, q2y, id1, id2, -tx, -ty,
+                                -dot2(tx, ty, v1x, v1y));
+  const bool ok2 = clip_segment(q1x, q1y, q2x, q2y, id1, id2, tx, ty,
+                                dot2(tx, ty, v2x, v2y));
+  const bool ok = ok1 && ok2;
+  const float qx[2] = {q1x, q2x}, qy[2] = {q1y, q2y};
+  const int ids[2] = {id1, id2};
+  for (int k = 0; k < 2; ++k) {
+    const float sep = dot2(nrx, nry, qx[k] - v1x, qy[k] - v1y) - TOTAL_R;
+    m.sep[k] = sep;
+    m.touch[k] = ok && sep <= 0.0f;
+    const float h = 0.5f * (sep + TOTAL_R);
+    m.px[k] = qx[k] - h * nrx;
+    m.py[k] = qy[k] - h * nry;
+    m.ids[k] = ids[k] + (flip ? 64 : 0);
+    rot_t(csi, sni, qx[k] - cix, qy[k] - ciy, m.lpsx[k], m.lpsy[k]);
+  }
+  m.nx = flip ? -nrx : nrx;
+  m.ny = flip ? -nry : nry;
+  m.mtype = flip ? 2 : 1;
+  rot_t(csr, snr, nrx, nry, m.lnx, m.lny);
+  rot_t(csr, snr, 0.5f * (v1x + v2x) - crx, 0.5f * (v1y + v2y) - cry,
+        m.lppx, m.lppy);
+  m.rad_sub = TOTAL_R;
+}
+
+// Manifold of the body pair (a, b), dispatched on the per-world shapes.
+PHYS_FN void collide_pair(const SpecF& F, const SpecI& I, const State& S,
+                          const Work& X, int a, int b, Manifold& m) {
+  const bool ca = S.circ[a], cb = S.circ[b];
+  if (ca && cb) {
+    collide_circles(S.cx[a], S.cy[a], F.radius[a], S.cx[b], S.cy[b],
+                    F.radius[b], m);
+    return;
+  }
+  float avx[MV], avy[MV], anx[MV], any[MV], bvx[MV], bvy[MV], bnx[MV], bny[MV];
+  const int nva = I.nverts[a], nvb = I.nverts[b];
+  if (!ca)
+    world_poly(F, a, S.cx[a], S.cy[a], X.cs[a], X.sn[a], nva, avx, avy, anx, any);
+  if (!cb)
+    world_poly(F, b, S.cx[b], S.cy[b], X.cs[b], X.sn[b], nvb, bvx, bvy, bnx, bny);
+  if (ca) {            // circle A, polygon B: B's face manifold, flipped
+    collide_poly_circle(bvx, bvy, bnx, bny, nvb, S.cx[b], S.cy[b], X.cs[b],
+                        X.sn[b], S.cx[a], S.cy[a], F.radius[a], m);
+    m.nx = -m.nx;
+    m.ny = -m.ny;
+    m.mtype = 2;
+    return;
+  }
+  if (cb) {
+    collide_poly_circle(avx, avy, anx, any, nva, S.cx[a], S.cy[a], X.cs[a],
+                        X.sn[a], S.cx[b], S.cy[b], F.radius[b], m);
+    return;
+  }
+  int fa, fb;
+  const float sep_a = max_separation(avx, avy, anx, any, nva, bvx, bvy, nvb, fa);
+  const float sep_b = max_separation(bvx, bvy, bnx, bny, nvb, avx, avy, nva, fb);
+  const bool no_contact = sep_a > TOTAL_R || sep_b > TOTAL_R;
+  if (sep_b > sep_a + FACE_TOL)
+    clip_face(bvx, bvy, bnx, bny, nvb, fb, S.cx[b], S.cy[b], X.cs[b], X.sn[b],
+              avx, avy, anx, any, nva, S.cx[a], S.cy[a], X.cs[a], X.sn[a],
+              true, m);
+  else
+    clip_face(avx, avy, anx, any, nva, fa, S.cx[a], S.cy[a], X.cs[a], X.sn[a],
+              bvx, bvy, bnx, bny, nvb, S.cx[b], S.cy[b], X.cs[b], X.sn[b],
+              false, m);
+  m.touch[0] = m.touch[0] && !no_contact;
+  m.touch[1] = m.touch[1] && !no_contact;
+}
+
+// Body i against the inward half-plane wi (collide_wall).
+PHYS_FN void collide_wall(const SpecF& F, const SpecI& I, const State& S,
+                          const Work& X, int i, int wi, Manifold& m) {
+  const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
+  const float off = F.wall_off[wi];
+  const float cx = S.cx[i], cy = S.cy[i];
+  if (S.circ[i]) {
+    const float r = F.radius[i];
+    m.sep[0] = ((dot2(nx, ny, cx, cy) - off) - r) - POLY_RADIUS;
+    m.sep[1] = BIG;
+    m.px[0] = m.px[1] = cx - r * nx;
+    m.py[0] = m.py[1] = cy - r * ny;
+    m.ids[0] = m.ids[1] = 0;
+    m.lpsx[0] = m.lpsx[1] = m.lpsy[0] = m.lpsy[1] = 0.0f;
+    m.rad_sub = r + POLY_RADIUS;
+  } else {
+    const int nv = I.nverts[i];
+    float wvx[MV], wvy[MV], wnx[MV], wny[MV];
+    world_poly(F, i, cx, cy, X.cs[i], X.sn[i], nv, wvx, wvy, wnx, wny);
+    // the two deepest vertices, ties to the lower index (a stable sort)
+    int i1 = -1, i2 = -1;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int v = 0; v < nv; ++v) {
+      const float s = (dot2(wvx[v], wvy[v], nx, ny) - off) - TOTAL_R;
+      if (i1 < 0 || s < s1) { i2 = i1; s2 = s1; i1 = v; s1 = s; }
+      else if (i2 < 0 || s < s2) { i2 = v; s2 = s; }
+    }
+    const int iv[2] = {i1, i2};
+    m.sep[0] = s1;
+    m.sep[1] = s2;
+    for (int k = 0; k < 2; ++k) {
+      m.px[k] = wvx[iv[k]];
+      m.py[k] = wvy[iv[k]];
+      m.ids[k] = iv[k];
+      rot_t(X.cs[i], X.sn[i], m.px[k] - cx, m.py[k] - cy, m.lpsx[k], m.lpsy[k]);
+    }
+    m.rad_sub = TOTAL_R;
+  }
+  m.touch[0] = m.sep[0] <= 0.0f;
+  m.touch[1] = m.sep[1] <= 0.0f;
+}
+
+// Warm start: carry accumulated impulses of persisting contact ids.
+PHYS_FN void match_impulses(const int* new_ids, const bool* touch,
+                            const int* old_ids, const float (*old_imp)[2],
+                            float (*imp)[2]) {
+  for (int k = 0; k < 2; ++k)
+    for (int q = 0; q < 2; ++q) {
+      const float e0 = new_ids[k] == old_ids[0] ? 1.0f : 0.0f;
+      const float e1 = new_ids[k] == old_ids[1] ? 1.0f : 0.0f;
+      imp[k][q] = touch[k] ? e0 * old_imp[0][q] + e1 * old_imp[1][q] : 0.0f;
+    }
+}
+
+
+// ---- the solver stages (physics.py) ----------------------------------------
+
+// Box2D's 2-point normal block solve (_block_lcp): impulse deltas.
+PHYS_FN void block_lcp(float b1, float b2, float a1, float a2, float k11,
+                       float k22, float k12, float nm1, float nm2, float& d1,
+                       float& d2) {
+  const float b1p = b1 - (k11 * a1 + k12 * a2);
+  const float b2p = b2 - (k12 * a1 + k22 * a2);
+  const float det = k11 * k22 - k12 * k12;
+  const float idet = fabsf(det) > 1e-12f ? 1.0f / (det == 0.0f ? 1.0f : det)
+                                         : 0.0f;
+  const float x1_1 = -(k22 * b1p - k12 * b2p) * idet;
+  const float x2_1 = -(k11 * b2p - k12 * b1p) * idet;
+  const float x1_2 = -nm1 * b1p;
+  const float x2_3 = -nm2 * b2p;
+  float x1, x2;
+  if (x1_1 >= 0.0f && x2_1 >= 0.0f) { x1 = x1_1; x2 = x2_1; }
+  else if (x1_2 >= 0.0f && k12 * x1_2 + b2p >= 0.0f) { x1 = x1_2; x2 = 0.0f; }
+  else if (x2_3 >= 0.0f && k12 * x2_3 + b1p >= 0.0f) { x1 = 0.0f; x2 = x2_3; }
+  else if (b1p >= 0.0f && b2p >= 0.0f) { x1 = 0.0f; x2 = 0.0f; }
+  else { x1 = a1; x2 = a2; }
+  d1 = x1 - a1;
+  d2 = x2 - a2;
+}
+
+// Box2D 2.3's coupled revolute limit + point velocity solve (_joint_block).
+PHYS_FN void joint_block(int state, float cd1x, float cd1y, float cd2,
+                         float jlim, float k11, float k12, float k13,
+                         float k22, float k23, float k33, float& dx,
+                         float& dy, float& dz) {
+  const float a11 = k22 * k33 - k23 * k23;
+  const float a12 = k13 * k23 - k12 * k33;
+  const float a13 = k12 * k23 - k13 * k22;
+  const float a22 = k11 * k33 - k13 * k13;
+  const float a23 = k13 * k12 - k11 * k23;
+  const float a33 = k11 * k22 - k12 * k12;
+  float det3 = k11 * a11 + k12 * a12 + k13 * a13;
+  det3 = fabsf(det3) > 1e-12f ? det3 : 1.0f;
+  float det2 = k11 * k22 - k12 * k12;
+  det2 = fabsf(det2) > 1e-12f ? det2 : 1.0f;
+  if (state > 0) {
+    const float ix = -(a11 * cd1x + a12 * cd1y + a13 * cd2) / det3;
+    const float iy = -(a12 * cd1x + a22 * cd1y + a23 * cd2) / det3;
+    const float iz = -(a13 * cd1x + a23 * cd1y + a33 * cd2) / det3;
+    const float new_z = jlim + iz;
+    const bool clamp = (state == 1 && new_z < 0.0f) || (state == 2 && new_z > 0.0f);
+    if (clamp) {
+      const float r1 = -cd1x + jlim * k13;
+      const float r2 = -cd1y + jlim * k23;
+      dx = (k22 * r1 - k12 * r2) / det2;
+      dy = (k11 * r2 - k12 * r1) / det2;
+      dz = -jlim;
+    } else {
+      dx = ix; dy = iy; dz = iz;
+    }
+  } else {
+    dx = -(k22 * cd1x - k12 * cd1y) / det2;
+    dy = -(k11 * cd1y - k12 * cd1x) / det2;
+    dz = 0.0f;
+  }
+}
+
+// Per-episode body constants from the shape flags (body_inv_mass,
+// local_center).
+PHYS_FN void body_constants(const SpecF& F, const SpecI& I, const State& S,
+                            Work& X) {
+  for (int i = 0; i < I.n; ++i) {
+    const int v = S.circ[i] ? 0 : 1;
+    X.inv_m[i] = F.inv_m[i][v];
+    X.inv_i[i] = F.inv_i[i][v];
+    X.lcx[i] = F.lc[i][v][0];
+    X.lcy[i] = F.lc[i][v][1];
+  }
+}
+
+// Steps 1-4 (_presolve up to the warm start): integrate velocities,
+// narrowphase, warm-start matching, constraint init.
+PHYS_FN void presolve(const SpecF& F, const SpecI& I, const State& S, Work& X) {
+  const int n = I.n;
+  for (int i = 0; i < n; ++i) {
+    X.vx[i] = (S.vx[i] + F.dtg[0]) / F.lin_div[i];
+    X.vy[i] = (S.vy[i] + F.dtg[1]) / F.lin_div[i];
+    X.w[i] = S.w[i] / F.ang_div[i];
+    X.cs[i] = cosf(S.a[i]);
+    X.sn[i] = sinf(S.a[i]);
+  }
+  // walls: the static wall is body A with zero mass
+  for (int i = 0; i < n; ++i) {
+    const float im = X.inv_m[i], ii = X.inv_i[i];
+    for (int wi = 0; wi < I.nw; ++wi) {
+      WallC& C = X.wc[i][wi];
+      Manifold m;
+      collide_wall(F, I, S, X, i, wi, m);
+      const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
+      const float tx = ny, ty = -nx;
+      float rn[2], kt[2];
+      for (int k = 0; k < 2; ++k) {
+        C.touch[k] = m.touch[k];
+        C.ids[k] = m.ids[k];
+        C.rbx[k] = m.px[k] - S.cx[i];
+        C.rby[k] = m.py[k] - S.cy[i];
+        C.lpx[k] = m.lpsx[k];
+        C.lpy[k] = m.lpsy[k];
+        rn[k] = cross_vv(C.rbx[k], C.rby[k], nx, ny);
+        C.kn[k] = im + ii * (rn[k] * rn[k]);
+        const float rt = cross_vv(C.rbx[k], C.rby[k], tx, ty);
+        kt[k] = im + ii * (rt * rt);
+      }
+      C.rad_sub = m.rad_sub;
+      match_impulses(C.ids, C.touch, S.wc_id[i][wi], S.wc_imp[i][wi], C.imp);
+      C.k12 = im + ii * rn[0] * rn[1];
+      const float det = C.kn[0] * C.kn[1] - C.k12 * C.k12;
+      const bool cond = C.kn[0] * C.kn[0] < 1000.0f * det;
+      const bool both = C.touch[0] && C.touch[1];
+      C.block = both && cond;
+      C.vtouch[0] = C.touch[0];
+      C.vtouch[1] = C.touch[1] && !(both && !cond);
+      for (int k = 0; k < 2; ++k) {
+        const bool vt = C.vtouch[k];
+        if (!vt) C.imp[k][0] = C.imp[k][1] = 0.0f;
+        C.nmass[k] = vt ? 1.0f / fmaxf(C.kn[k], 1e-12f) : 0.0f;
+        C.tmass[k] = vt ? 1.0f / fmaxf(kt[k], 1e-12f) : 0.0f;
+        const float dvx = X.vx[i] + (-X.w[i]) * C.rby[k];
+        const float dvy = X.vy[i] + X.w[i] * C.rbx[k];
+        const float vn0 = dot2(dvx, dvy, nx, ny);
+        C.bias[k] = vn0 < -VELOCITY_THRESHOLD ? (-F.w_e[i]) * vn0 : 0.0f;
+      }
+    }
+  }
+  // body pairs
+  for (int p = 0; p < I.np; ++p) {
+    PairC& C = X.pc[p];
+    if (!I.pair_valid[p]) {
+      C.touch[0] = C.touch[1] = C.vtouch[0] = C.vtouch[1] = C.block = false;
+      C.ids[0] = C.ids[1] = 0;
+      continue;
+    }
+    const int a = I.pair_a[p], b = I.pair_b[p];
+    Manifold m;
+    collide_pair(F, I, S, X, a, b, m);
+    C.nx = m.nx; C.ny = m.ny;
+    C.mtype = m.mtype;
+    C.lnx = m.lnx; C.lny = m.lny; C.lppx = m.lppx; C.lppy = m.lppy;
+    C.rad_sub = m.rad_sub;
+    const float tx = m.ny, ty = -m.nx;
+    C.imA = X.inv_m[a]; C.imB = X.inv_m[b];
+    C.iiA = X.inv_i[a]; C.iiB = X.inv_i[b];
+    float rnA[2], rnB[2], kt[2];
+    for (int k = 0; k < 2; ++k) {
+      C.touch[k] = m.touch[k];
+      C.ids[k] = m.ids[k];
+      C.lpsx[k] = m.lpsx[k]; C.lpsy[k] = m.lpsy[k];
+      C.rax[k] = m.px[k] - S.cx[a]; C.ray[k] = m.py[k] - S.cy[a];
+      C.rbx[k] = m.px[k] - S.cx[b]; C.rby[k] = m.py[k] - S.cy[b];
+      rnA[k] = cross_vv(C.rax[k], C.ray[k], m.nx, m.ny);
+      rnB[k] = cross_vv(C.rbx[k], C.rby[k], m.nx, m.ny);
+      C.kn[k] = ((C.imA + C.imB) + C.iiA * (rnA[k] * rnA[k]))
+          + C.iiB * (rnB[k] * rnB[k]);
+      const float rtA = cross_vv(C.rax[k], C.ray[k], tx, ty);
+      const float rtB = cross_vv(C.rbx[k], C.rby[k], tx, ty);
+      kt[k] = ((C.imA + C.imB) + C.iiA * (rtA * rtA)) + C.iiB * (rtB * rtB);
+    }
+    match_impulses(C.ids, C.touch, S.pc_id[p], S.pc_imp[p], C.imp);
+    C.k12 = ((C.imA + C.imB) + C.iiA * rnA[0] * rnA[1]) + C.iiB * rnB[0] * rnB[1];
+    const float det = C.kn[0] * C.kn[1] - C.k12 * C.k12;
+    const bool cond = C.kn[0] * C.kn[0] < 1000.0f * det;
+    const bool both = C.touch[0] && C.touch[1];
+    C.block = both && cond;
+    C.vtouch[0] = C.touch[0];
+    C.vtouch[1] = C.touch[1] && !(both && !cond);
+    for (int k = 0; k < 2; ++k) {
+      const bool vt = C.vtouch[k];
+      if (!vt) C.imp[k][0] = C.imp[k][1] = 0.0f;
+      C.nmass[k] = vt ? 1.0f / fmaxf(C.kn[k], 1e-12f) : 0.0f;
+      C.tmass[k] = vt ? 1.0f / fmaxf(kt[k], 1e-12f) : 0.0f;
+      const float dvx = ((X.vx[b] + (-X.w[b]) * C.rby[k]) - X.vx[a])
+          - (-X.w[a]) * C.ray[k];
+      const float dvy = ((X.vy[b] + X.w[b] * C.rbx[k]) - X.vy[a])
+          - X.w[a] * C.rax[k];
+      const float vn0 = dot2(dvx, dvy, m.nx, m.ny);
+      C.bias[k] = vn0 < -VELOCITY_THRESHOLD ? (-F.p_e[p]) * vn0 : 0.0f;
+    }
+  }
+  // joints
+  for (int j = 0; j < I.nj; ++j) {
+    JointC& J = X.jc[j];
+    const int pa = I.j_pa[j], ch = I.j_ch[j];
+    rot(X.cs[pa], X.sn[pa], F.j_anchor_a[j][0] - X.lcx[pa],
+        F.j_anchor_a[j][1] - X.lcy[pa], J.rax, J.ray);
+    rot(X.cs[ch], X.sn[ch], F.j_anchor_b[j][0] - X.lcx[ch],
+        F.j_anchor_b[j][1] - X.lcy[ch], J.rbx, J.rby);
+    J.mA = X.inv_m[pa]; J.mB = X.inv_m[ch];
+    J.iA = X.inv_i[pa]; J.iB = X.inv_i[ch];
+    const float raw = J.iA + J.iB;
+    J.axmass = (raw > 0.0f ? 1.0f / fmaxf(raw, 1e-12f) : 0.0f) * F.j_validf[j];
+    const float ang = (S.a[ch] - S.a[pa]) - S.j_ref[j];
+    int st = 0;
+    if (I.j_limited[j] && I.j_valid[j]) {
+      if (I.j_equal[j]) st = 3;
+      else if (ang <= F.j_lower[j]) st = 1;
+      else if (ang >= F.j_upper[j]) st = 2;
+    }
+    J.state = st;
+    X.j_lim[j] = (st == S.j_state[j] ? S.j_lim[j] : 0.0f) * F.j_validf[j];
+    X.j_mot[j] = S.j_mot[j] * F.j_validf[j];
+    X.j_imp[j][0] = S.j_imp[j][0] * F.j_validf[j];
+    X.j_imp[j][1] = S.j_imp[j][1] * F.j_validf[j];
+  }
+}
+
+// Step 5: warm start, in _presolve's order (walls; pairs on A then B;
+// joints on the parent then the child).
+PHYS_FN void warm_start(const SpecF& F, const SpecI& I, Work& X) {
+  for (int i = 0; i < I.n; ++i) {
+    float px = 0.0f, py = 0.0f, tq = 0.0f;
+    bool first = true;
+    for (int wi = 0; wi < I.nw; ++wi) {
+      const WallC& C = X.wc[i][wi];
+      const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
+      const float tx = ny, ty = -nx;
+      for (int k = 0; k < 2; ++k) {
+        const float Px = C.imp[k][0] * nx + C.imp[k][1] * tx;
+        const float Py = C.imp[k][0] * ny + C.imp[k][1] * ty;
+        const float t = cross_vv(C.rbx[k], C.rby[k], Px, Py);
+        px = first ? Px : px + Px;
+        py = first ? Py : py + Py;
+        tq = first ? t : tq + t;
+        first = false;
+      }
+    }
+    X.vx[i] = X.vx[i] + X.inv_m[i] * px;
+    X.vy[i] = X.vy[i] + X.inv_m[i] * py;
+    X.w[i] = X.w[i] + X.inv_i[i] * tq;
+  }
+  float Ppx[MP], Ppy[MP], tA[MP], tB[MP];
+  for (int p = 0; p < I.np; ++p) {
+    const PairC& C = X.pc[p];
+    if (!I.pair_valid[p]) continue;
+    const float tx = C.ny, ty = -C.nx;
+    float sx = 0.0f, sy = 0.0f, sa = 0.0f, sb = 0.0f;
+    for (int k = 0; k < 2; ++k) {
+      const float Px = C.imp[k][0] * C.nx + C.imp[k][1] * tx;
+      const float Py = C.imp[k][0] * C.ny + C.imp[k][1] * ty;
+      const float ca = cross_vv(C.rax[k], C.ray[k], Px, Py);
+      const float cb = cross_vv(C.rbx[k], C.rby[k], Px, Py);
+      sx = k ? sx + Px : Px;
+      sy = k ? sy + Py : Py;
+      sa = k ? sa + ca : ca;
+      sb = k ? sb + cb : cb;
+    }
+    Ppx[p] = sx; Ppy[p] = sy; tA[p] = sa; tB[p] = sb;
+  }
+  for (int p = 0; p < I.np; ++p) {
+    if (!I.pair_valid[p]) continue;
+    const int a = I.pair_a[p];
+    X.vx[a] = X.vx[a] + (-X.inv_m[a]) * Ppx[p];
+    X.vy[a] = X.vy[a] + (-X.inv_m[a]) * Ppy[p];
+  }
+  for (int p = 0; p < I.np; ++p) {
+    if (!I.pair_valid[p]) continue;
+    const int b = I.pair_b[p];
+    X.vx[b] = X.vx[b] + X.inv_m[b] * Ppx[p];
+    X.vy[b] = X.vy[b] + X.inv_m[b] * Ppy[p];
+  }
+  for (int p = 0; p < I.np; ++p) {
+    if (!I.pair_valid[p]) continue;
+    const int a = I.pair_a[p];
+    X.w[a] = X.w[a] + (-X.inv_i[a]) * tA[p];
+  }
+  for (int p = 0; p < I.np; ++p) {
+    if (!I.pair_valid[p]) continue;
+    const int b = I.pair_b[p];
+    X.w[b] = X.w[b] + X.inv_i[b] * tB[p];
+  }
+  for (int j = 0; j < I.jn; ++j) {
+    const JointC& J = X.jc[j];
+    const int pa = I.j_pa[j];
+    X.vx[pa] = X.vx[pa] + (-J.mA) * X.j_imp[j][0];
+    X.vy[pa] = X.vy[pa] + (-J.mA) * X.j_imp[j][1];
+  }
+  for (int j = 0; j < I.jn; ++j) {
+    const JointC& J = X.jc[j];
+    const int pa = I.j_pa[j];
+    const float ax = X.j_mot[j] + X.j_lim[j];
+    X.w[pa] = X.w[pa]
+        + (-J.iA) * (cross_vv(J.rax, J.ray, X.j_imp[j][0], X.j_imp[j][1]) + ax);
+  }
+  for (int j = 0; j < I.jn; ++j) {
+    const JointC& J = X.jc[j];
+    const int ch = I.j_ch[j];
+    X.vx[ch] = X.vx[ch] + J.mB * X.j_imp[j][0];
+    X.vy[ch] = X.vy[ch] + J.mB * X.j_imp[j][1];
+  }
+  for (int j = 0; j < I.jn; ++j) {
+    const JointC& J = X.jc[j];
+    const int ch = I.j_ch[j];
+    const float ax = X.j_mot[j] + X.j_lim[j];
+    X.w[ch] = X.w[ch]
+        + J.iB * (cross_vv(J.rbx, J.rby, X.j_imp[j][0], X.j_imp[j][1]) + ax);
+  }
+}
+
+// One Gauss-Seidel velocity sweep (_vel_sweep): joints (motor, then the
+// coupled limit + point solve), walls, body pairs. Returns the sweep's
+// largest |impulse delta| (for the convergence exit).
+PHYS_FN float velocity_sweep(const SpecF& F, const SpecI& I,
+                             const float* motor_speed, Work& X) {
+  float dm = 0.0f;
+  for (int j = 0; j < I.jn; ++j) {
+    const JointC& J = X.jc[j];
+    const int pa = I.j_pa[j], ch = I.j_ch[j];
+    if (!I.j_equal[j]) {
+      const float cdot = (X.w[ch] - X.w[pa]) - motor_speed[j];
+      const float imp = (-J.axmass) * cdot;
+      const float cap = F.j_cap[j];
+      const float nw = clampf(X.j_mot[j] + imp, -cap, cap);
+      const float d = nw - X.j_mot[j];
+      X.j_mot[j] = X.j_mot[j] + d;
+      X.w[pa] = X.w[pa] - J.iA * d;
+      X.w[ch] = X.w[ch] + J.iB * d;
+      dm = fmaxf(dm, fabsf(d));
+    }
+    const float cd1x = ((X.vx[ch] + (-X.w[ch]) * J.rby) - X.vx[pa])
+        - (-X.w[pa]) * J.ray;
+    const float cd1y = ((X.vy[ch] + X.w[ch] * J.rbx) - X.vy[pa])
+        - X.w[pa] * J.rax;
+    const float cd2 = X.w[ch] - X.w[pa];
+    const float k11 = ((J.mA + J.mB) + J.iA * (J.ray * J.ray)) + J.iB * (J.rby * J.rby);
+    const float k12 = ((-J.iA) * J.rax) * J.ray - (J.iB * J.rbx) * J.rby;
+    const float k13 = (-J.iA) * J.ray - J.iB * J.rby;
+    const float k22 = ((J.mA + J.mB) + J.iA * (J.rax * J.rax)) + J.iB * (J.rbx * J.rbx);
+    const float k23 = J.iA * J.rax + J.iB * J.rbx;
+    const float k33 = J.iA + J.iB;
+    float dx, dy, dz;
+    joint_block(J.state, cd1x, cd1y, cd2, X.j_lim[j], k11, k12, k13, k22,
+                k23, k33, dx, dy, dz);
+    X.j_imp[j][0] = X.j_imp[j][0] + dx;
+    X.j_imp[j][1] = X.j_imp[j][1] + dy;
+    X.j_lim[j] = X.j_lim[j] + dz;
+    X.vx[pa] = X.vx[pa] - J.mA * dx;
+    X.vy[pa] = X.vy[pa] - J.mA * dy;
+    X.vx[ch] = X.vx[ch] + J.mB * dx;
+    X.vy[ch] = X.vy[ch] + J.mB * dy;
+    X.w[pa] = X.w[pa] - J.iA * (cross_vv(J.rax, J.ray, dx, dy) + dz);
+    X.w[ch] = X.w[ch] + J.iB * (cross_vv(J.rbx, J.rby, dx, dy) + dz);
+    dm = fmaxf(dm, fmaxf(fmaxf(fabsf(dx), fabsf(dy)), fabsf(dz)));
+  }
+  // walls: per body, sequential over walls; a contact with no velocity
+  // point is a no-op (zero masses and impulses) and is skipped
+  for (int i = 0; i < I.n; ++i) {
+    const float im = X.inv_m[i], ii = X.inv_i[i];
+    for (int wi = 0; wi < I.nw; ++wi) {
+      WallC& C = X.wc[i][wi];
+      if (!(C.vtouch[0] || C.vtouch[1])) continue;
+      const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
+      const float tx = ny, ty = -nx;
+      const float mu = F.w_mu[i];
+      for (int k = 0; k < 2; ++k) {    // friction, both points
+        const float dvx = X.vx[i] + (-X.w[i]) * C.rby[k];
+        const float dvy = X.vy[i] + X.w[i] * C.rbx[k];
+        const float vt = dvx * tx + dvy * ty;
+        const float lam = (-C.tmass[k]) * vt;
+        const float maxf = mu * C.imp[k][0];
+        const float old = C.imp[k][1];
+        const float nw = clampf(old + lam, -maxf, maxf);
+        const float d = nw - old;
+        C.imp[k][1] = nw;
+        const float Px = d * tx, Py = d * ty;
+        X.vx[i] = X.vx[i] + im * Px;
+        X.vy[i] = X.vy[i] + im * Py;
+        X.w[i] = X.w[i] + ii * cross_vv(C.rbx[k], C.rby[k], Px, Py);
+        dm = fmaxf(dm, fabsf(d));
+      }
+      // normal: sequential candidates, then the 2x2 block candidate
+      const float a1 = C.imp[0][0], a2 = C.imp[1][0];
+      float vsx = X.vx[i], vsy = X.vy[i], ws = X.w[i];
+      float dseq[2];
+      for (int k = 0; k < 2; ++k) {
+        const float dvx = vsx + (-ws) * C.rby[k];
+        const float dvy = vsy + ws * C.rbx[k];
+        const float vn = dvx * nx + dvy * ny;
+        const float lam = (-C.nmass[k]) * (vn - C.bias[k]);
+        const float acc = k ? a2 : a1;
+        dseq[k] = fmaxf(acc + lam, 0.0f) - acc;
+        if (k == 0) {
+          const float Px = dseq[0] * nx, Py = dseq[0] * ny;
+          vsx = vsx + im * Px;
+          vsy = vsy + im * Py;
+          ws = ws + ii * cross_vv(C.rbx[0], C.rby[0], Px, Py);
+        }
+      }
+      float d1 = dseq[0], d2 = dseq[1];
+      if (C.block) {
+        const float vn1 = (X.vx[i] + (-X.w[i]) * C.rby[0]) * nx
+            + (X.vy[i] + X.w[i] * C.rbx[0]) * ny;
+        const float vn2 = (X.vx[i] + (-X.w[i]) * C.rby[1]) * nx
+            + (X.vy[i] + X.w[i] * C.rbx[1]) * ny;
+        block_lcp(vn1 - C.bias[0], vn2 - C.bias[1], a1, a2, C.kn[0], C.kn[1],
+                  C.k12, C.nmass[0], C.nmass[1], d1, d2);
+      }
+      const float s = d1 + d2;
+      X.vx[i] = X.vx[i] + im * (s * nx);
+      X.vy[i] = X.vy[i] + im * (s * ny);
+      X.w[i] = X.w[i] + ii * (cross_vv(C.rbx[0], C.rby[0], d1 * nx, d1 * ny)
+                              + cross_vv(C.rbx[1], C.rby[1], d2 * nx, d2 * ny));
+      C.imp[0][0] = a1 + d1;
+      C.imp[1][0] = a2 + d2;
+      dm = fmaxf(dm, fmaxf(fabsf(d1), fabsf(d2)));
+    }
+  }
+  // body pairs
+  for (int p = 0; p < I.np; ++p) {
+    PairC& C = X.pc[p];
+    if (!I.pair_valid[p] || !(C.vtouch[0] || C.vtouch[1])) continue;
+    const int a = I.pair_a[p], b = I.pair_b[p];
+    const float nx = C.nx, ny = C.ny, tx = ny, ty = -nx;
+    const float mu = F.p_mu[p];
+    for (int k = 0; k < 2; ++k) {
+      const float dvx = ((X.vx[b] + (-X.w[b]) * C.rby[k]) - X.vx[a])
+          - (-X.w[a]) * C.ray[k];
+      const float dvy = ((X.vy[b] + X.w[b] * C.rbx[k]) - X.vy[a])
+          - X.w[a] * C.rax[k];
+      const float vt = dot2(dvx, dvy, tx, ty);
+      const float lam = (-C.tmass[k]) * vt;
+      const float maxf = mu * C.imp[k][0];
+      const float old = C.imp[k][1];
+      const float nw = clampf(old + lam, -maxf, maxf);
+      const float d = nw - old;
+      C.imp[k][1] = nw;
+      const float Px = d * tx, Py = d * ty;
+      X.vx[a] = X.vx[a] - C.imA * Px;
+      X.vy[a] = X.vy[a] - C.imA * Py;
+      X.vx[b] = X.vx[b] + C.imB * Px;
+      X.vy[b] = X.vy[b] + C.imB * Py;
+      X.w[a] = X.w[a] - C.iiA * cross_vv(C.rax[k], C.ray[k], Px, Py);
+      X.w[b] = X.w[b] + C.iiB * cross_vv(C.rbx[k], C.rby[k], Px, Py);
+      dm = fmaxf(dm, fabsf(d));
+    }
+    const float a1 = C.imp[0][0], a2 = C.imp[1][0];
+    float vsax = X.vx[a], vsay = X.vy[a], vsbx = X.vx[b], vsby = X.vy[b];
+    float wsa = X.w[a], wsb = X.w[b];
+    float dseq[2];
+    for (int k = 0; k < 2; ++k) {
+      const float dvx = ((vsbx + (-wsb) * C.rby[k]) - vsax) - (-wsa) * C.ray[k];
+      const float dvy = ((vsby + wsb * C.rbx[k]) - vsay) - wsa * C.rax[k];
+      const float vn = dot2(dvx, dvy, nx, ny);
+      const float lam = (-C.nmass[k]) * (vn - C.bias[k]);
+      const float acc = k ? a2 : a1;
+      dseq[k] = fmaxf(acc + lam, 0.0f) - acc;
+      if (k == 0) {
+        const float Px = dseq[0] * nx, Py = dseq[0] * ny;
+        vsax = vsax - C.imA * Px;
+        vsay = vsay - C.imA * Py;
+        vsbx = vsbx + C.imB * Px;
+        vsby = vsby + C.imB * Py;
+        wsa = wsa - C.iiA * cross_vv(C.rax[0], C.ray[0], Px, Py);
+        wsb = wsb + C.iiB * cross_vv(C.rbx[0], C.rby[0], Px, Py);
+      }
+    }
+    float d1 = dseq[0], d2 = dseq[1];
+    if (C.block) {
+      float vn[2];
+      for (int k = 0; k < 2; ++k) {
+        const float dvx = ((X.vx[b] + (-X.w[b]) * C.rby[k]) - X.vx[a])
+            - (-X.w[a]) * C.ray[k];
+        const float dvy = ((X.vy[b] + X.w[b] * C.rbx[k]) - X.vy[a])
+            - X.w[a] * C.rax[k];
+        vn[k] = dot2(dvx, dvy, nx, ny);
+      }
+      block_lcp(vn[0] - C.bias[0], vn[1] - C.bias[1], a1, a2, C.kn[0],
+                C.kn[1], C.k12, C.nmass[0], C.nmass[1], d1, d2);
+    }
+    const float s = d1 + d2;
+    const float Px = s * nx, Py = s * ny;
+    X.vx[a] = X.vx[a] - C.imA * Px;
+    X.vy[a] = X.vy[a] - C.imA * Py;
+    X.vx[b] = X.vx[b] + C.imB * Px;
+    X.vy[b] = X.vy[b] + C.imB * Py;
+    const float n1x = d1 * nx, n1y = d1 * ny, n2x = d2 * nx, n2y = d2 * ny;
+    const float dw = cross_vv(C.rax[0], C.ray[0], n1x, n1y)
+        + cross_vv(C.rax[1], C.ray[1], n2x, n2y);
+    const float dwb = cross_vv(C.rbx[0], C.rby[0], n1x, n1y)
+        + cross_vv(C.rbx[1], C.rby[1], n2x, n2y);
+    X.w[a] = X.w[a] - C.iiA * dw;
+    X.w[b] = X.w[b] + C.iiB * dwb;
+    C.imp[0][0] = a1 + d1;
+    C.imp[1][0] = a2 + d2;
+    dm = fmaxf(dm, fmaxf(fabsf(d1), fabsf(d2)));
+  }
+  return dm;
+}
+
+// velocity_solve: vel_iters sweeps; with exit_tol > 0 the world stops after
+// the first sweep whose largest impulse delta is <= exit_tol.
+PHYS_FN void velocity_solve(const SpecF& F, const SpecI& I,
+                            const float* motor_speed, Work& X) {
+  for (int it = 0; it < I.vel_iters; ++it) {
+    const float dm = velocity_sweep(F, I, motor_speed, X);
+    if (F.exit_tol > 0.0f && dm <= F.exit_tol) break;
+  }
+}
+
+// Steps 7-8 (_position_solve): integrate positions into X.cx/cy/a, then
+// NGS corrections (walls, pairs, then joints: limit, then point). The loop
+// stops after the first iteration that meets b2Island::Solve's exit
+// (contact separation >= -3 * linearSlop and every joint within its slops);
+// that iteration's corrections are kept.
+PHYS_FN void position_solve(const SpecF& F, const SpecI& I, const State& S,
+                            Work& X) {
+  const int n = I.n;
+  const float dt = F.dt;
+  for (int i = 0; i < n; ++i) {
+    X.cx[i] = S.cx[i] + dt * X.vx[i];
+    X.cy[i] = S.cy[i] + dt * X.vy[i];
+    X.a[i] = S.a[i] + dt * X.w[i];
+  }
+  for (int it = 0; it < I.pos_iters; ++it) {
+    float minsep = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float im = X.inv_m[i], ii = X.inv_i[i];
+      for (int wi = 0; wi < I.nw; ++wi) {
+        const WallC& C = X.wc[i][wi];
+        const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
+        for (int k = 0; k < 2; ++k) {
+          if (!C.touch[k]) continue;     // a zero impulse: no change
+          float rx, ry;
+          rot(cosf(X.a[i]), sinf(X.a[i]), C.lpx[k], C.lpy[k], rx, ry);
+          const float ptx = X.cx[i] + rx, pty = X.cy[i] + ry;
+          const float sep = ((ptx * nx + pty * ny) - F.wall_off[wi]) - C.rad_sub;
+          minsep = fminf(minsep, sep);
+          const float Cc = clampf(BAUMGARTE * (sep + LINEAR_SLOP),
+                                  -MAX_LINEAR_CORRECTION, 0.0f);
+          const float rbx = ptx - X.cx[i], rby = pty - X.cy[i];
+          const float rn = rbx * ny - rby * nx;
+          const float kn = im + ii * (rn * rn);
+          const float imp = (-Cc) / fmaxf(kn, 1e-12f);
+          const float Px = imp * nx, Py = imp * ny;
+          X.cx[i] = X.cx[i] + im * Px;
+          X.cy[i] = X.cy[i] + im * Py;
+          X.a[i] = X.a[i] + ii * cross_vv(rbx, rby, Px, Py);
+        }
+      }
+    }
+    for (int p = 0; p < I.np; ++p) {
+      const PairC& C = X.pc[p];
+      const int ia = I.pair_a[p], ib = I.pair_b[p];
+      for (int k = 0; k < 2; ++k) {
+        if (!C.touch[k]) continue;
+        const float csA = cosf(X.a[ia]), snA = sinf(X.a[ia]);
+        const float csB = cosf(X.a[ib]), snB = sinf(X.a[ib]);
+        float nx, ny, ptx, pty, sep, rx, ry;
+        if (C.mtype == 0) {
+          rot(csB, snB, C.lpsx[0], C.lpsy[0], rx, ry);
+          const float pax = X.cx[ia], pay = X.cy[ia];
+          const float pbx = X.cx[ib] + rx, pby = X.cy[ib] + ry;
+          const float dx = pbx - pax, dy = pby - pay;
+          const float dist = sqrtf(dx * dx + dy * dy);
+          const float dd = fmaxf(dist, 1e-9f);
+          nx = dist > 1e-9f ? dx / dd : 0.0f;
+          ny = dist > 1e-9f ? dy / dd : 1.0f;
+          sep = dist - C.rad_sub;
+          ptx = 0.5f * (pax + pbx);
+          pty = 0.5f * (pay + pby);
+        } else {
+          // face on A (mtype 1) or on B (mtype 2); the clip point is on
+          // the other body
+          const bool fa = C.mtype == 1;
+          const float cf = fa ? csA : csB, sf = fa ? snA : snB;
+          const float co = fa ? csB : csA, so = fa ? snB : snA;
+          const int bf = fa ? ia : ib, bo = fa ? ib : ia;
+          float fnx, fny, plx, ply;
+          rot(cf, sf, C.lnx, C.lny, fnx, fny);
+          rot(cf, sf, C.lppx, C.lppy, plx, ply);
+          plx = X.cx[bf] + plx;
+          ply = X.cy[bf] + ply;
+          rot(co, so, C.lpsx[k], C.lpsy[k], rx, ry);
+          ptx = X.cx[bo] + rx;
+          pty = X.cy[bo] + ry;
+          sep = dot2(ptx - plx, pty - ply, fnx, fny) - C.rad_sub;
+          nx = fa ? fnx : -fnx;
+          ny = fa ? fny : -fny;
+        }
+        minsep = fminf(minsep, sep);
+        const float Cc = clampf(BAUMGARTE * (sep + LINEAR_SLOP),
+                                -MAX_LINEAR_CORRECTION, 0.0f);
+        const float rax = ptx - X.cx[ia], ray = pty - X.cy[ia];
+        const float rbx = ptx - X.cx[ib], rby = pty - X.cy[ib];
+        const float rnA = cross_vv(rax, ray, nx, ny);
+        const float rnB = cross_vv(rbx, rby, nx, ny);
+        const float kn = ((X.inv_m[ia] + X.inv_m[ib]) + X.inv_i[ia] * (rnA * rnA))
+            + X.inv_i[ib] * (rnB * rnB);
+        const float imp = (-Cc) / fmaxf(kn, 1e-12f);
+        const float Px = imp * nx, Py = imp * ny;
+        X.cx[ia] = X.cx[ia] - X.inv_m[ia] * Px;
+        X.cy[ia] = X.cy[ia] - X.inv_m[ia] * Py;
+        X.cx[ib] = X.cx[ib] + X.inv_m[ib] * Px;
+        X.cy[ib] = X.cy[ib] + X.inv_m[ib] * Py;
+        X.a[ia] = X.a[ia] - X.inv_i[ia] * cross_vv(rax, ray, Px, Py);
+        X.a[ib] = X.a[ib] + X.inv_i[ib] * cross_vv(rbx, rby, Px, Py);
+      }
+    }
+    bool jbad = false;
+    for (int j = 0; j < I.jn; ++j) {
+      const JointC& J = X.jc[j];
+      const int pa = I.j_pa[j], ch = I.j_ch[j];
+      const float ang = (X.a[ch] - X.a[pa]) - S.j_ref[j];
+      const float lo = F.j_lower[j], hi = F.j_upper[j];
+      const float c_eq = clampf(ang - lo, -MAX_ANGULAR_CORRECTION,
+                                MAX_ANGULAR_CORRECTION);
+      const float c_lo = clampf((ang - lo) + ANGULAR_SLOP,
+                                -MAX_ANGULAR_CORRECTION, 0.0f);
+      const float c_hi = clampf((ang - hi) - ANGULAR_SLOP, 0.0f,
+                                MAX_ANGULAR_CORRECTION);
+      float Cc = 0.0f, ang_err = 0.0f;
+      if (J.state == 3) { Cc = c_eq; ang_err = fabsf(c_eq); }
+      else if (J.state == 1) { Cc = c_lo; ang_err = lo - ang; }
+      else if (J.state == 2) { Cc = c_hi; ang_err = ang - hi; }
+      const float d = (-J.axmass) * Cc;
+      X.a[pa] = X.a[pa] - J.iA * d;
+      X.a[ch] = X.a[ch] + J.iB * d;
+      float rax, ray, rbx, rby;
+      rot(cosf(X.a[pa]), sinf(X.a[pa]), F.j_anchor_a[j][0] - X.lcx[pa],
+          F.j_anchor_a[j][1] - X.lcy[pa], rax, ray);
+      rot(cosf(X.a[ch]), sinf(X.a[ch]), F.j_anchor_b[j][0] - X.lcx[ch],
+          F.j_anchor_b[j][1] - X.lcy[ch], rbx, rby);
+      const float cvx = ((X.cx[ch] + rbx) - X.cx[pa]) - rax;
+      const float cvy = ((X.cy[ch] + rby) - X.cy[pa]) - ray;
+      const float pos_err = sqrtf(cvx * cvx + cvy * cvy);
+      const float k11 = ((J.mA + J.mB) + J.iA * (ray * ray)) + J.iB * (rby * rby);
+      const float k12 = ((-J.iA) * rax) * ray - (J.iB * rbx) * rby;
+      const float k22 = ((J.mA + J.mB) + J.iA * (rax * rax)) + J.iB * (rbx * rbx);
+      float det = k11 * k22 - k12 * k12;
+      det = fabsf(det) > 1e-12f ? det : 1.0f;
+      const float Px = (-(k22 * cvx - k12 * cvy)) / det;
+      const float Py = (-(k11 * cvy - k12 * cvx)) / det;
+      X.cx[pa] = X.cx[pa] - J.mA * Px;
+      X.cy[pa] = X.cy[pa] - J.mA * Py;
+      X.cx[ch] = X.cx[ch] + J.mB * Px;
+      X.cy[ch] = X.cy[ch] + J.mB * Py;
+      X.a[pa] = X.a[pa] - J.iA * cross_vv(rax, ray, Px, Py);
+      X.a[ch] = X.a[ch] + J.iB * cross_vv(rbx, rby, Px, Py);
+      jbad = jbad || pos_err > LINEAR_SLOP || ang_err > ANGULAR_SLOP;
+    }
+    if (minsep >= MIN_SEP_OK && !jbad) break;
+  }
+}
+
+// Steps 9-10 (_finalize): island sleeping (min-label propagation over joints
+// and touching pairs, label_rounds Jacobi rounds) and the state writeback.
+PHYS_FN void finalize(const SpecF& F, const SpecI& I, const bool* motor_changed,
+                      State& S, Work& X) {
+  const int n = I.n;
+  if (I.allow_sleep) {
+    bool forced[MB];
+    int label[MB], nxt[MB];
+    for (int i = 0; i < n; ++i) { forced[i] = false; label[i] = i; }
+    for (int j = 0; j < I.jn; ++j)
+      if (motor_changed[j]) forced[I.j_pa[j]] = forced[I.j_ch[j]] = true;
+    for (int r = 0; r < I.label_rounds; ++r) {
+      for (int i = 0; i < n; ++i) nxt[i] = label[i];
+      for (int j = 0; j < I.jn; ++j) {
+        const int pa = I.j_pa[j], ch = I.j_ch[j];
+        nxt[pa] = label[ch] < nxt[pa] ? label[ch] : nxt[pa];
+        nxt[ch] = label[pa] < nxt[ch] ? label[pa] : nxt[ch];
+      }
+      for (int p = 0; p < I.np; ++p) {
+        const PairC& C = X.pc[p];
+        if (!(C.touch[0] || C.touch[1])) continue;
+        const int a = I.pair_a[p], b = I.pair_b[p];
+        nxt[a] = label[b] < nxt[a] ? label[b] : nxt[a];
+        nxt[b] = label[a] < nxt[b] ? label[a] : nxt[b];
+      }
+      for (int i = 0; i < n; ++i) label[i] = nxt[i];
+    }
+    for (int i = 0; i < n; ++i) {
+      const bool slow = (X.vx[i] * X.vx[i] + X.vy[i] * X.vy[i]) <= LIN_SLEEP_TOL_SQ
+          && X.w[i] * X.w[i] <= ANG_SLEEP_TOL_SQ;
+      S.sleep[i] = slow && !forced[i] ? S.sleep[i] + F.dt : 0.0f;
+    }
+    for (int i = 0; i < n; ++i) {
+      float isl = INFINITY;
+      for (int k = 0; k < n; ++k)
+        if (label[k] == label[i]) isl = fminf(isl, S.sleep[k]);
+      if (isl >= TIME_TO_SLEEP) {   // asleep: velocities 0, poses kept
+        X.vx[i] = X.vy[i] = X.w[i] = 0.0f;
+        X.cx[i] = S.cx[i];
+        X.cy[i] = S.cy[i];
+        X.a[i] = S.a[i];
+      }
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    S.cx[i] = X.cx[i]; S.cy[i] = X.cy[i]; S.a[i] = X.a[i];
+    S.vx[i] = X.vx[i]; S.vy[i] = X.vy[i]; S.w[i] = X.w[i];
+    for (int wi = 0; wi < I.nw; ++wi) {
+      const WallC& C = X.wc[i][wi];
+      for (int k = 0; k < 2; ++k) {
+        S.wc_imp[i][wi][k][0] = C.touch[k] ? C.imp[k][0] : 0.0f;
+        S.wc_imp[i][wi][k][1] = C.touch[k] ? C.imp[k][1] : 0.0f;
+        S.wc_id[i][wi][k] = C.touch[k] ? C.ids[k] : -1;
+      }
+    }
+  }
+  for (int p = 0; p < I.np; ++p) {
+    const PairC& C = X.pc[p];
+    for (int k = 0; k < 2; ++k) {
+      S.pc_imp[p][k][0] = C.touch[k] ? C.imp[k][0] : 0.0f;
+      S.pc_imp[p][k][1] = C.touch[k] ? C.imp[k][1] : 0.0f;
+      S.pc_id[p][k] = C.touch[k] ? C.ids[k] : -1;
+    }
+  }
+  for (int j = 0; j < I.nj; ++j) {
+    S.j_imp[j][0] = X.j_imp[j][0];
+    S.j_imp[j][1] = X.j_imp[j][1];
+    S.j_mot[j] = X.j_mot[j];
+    S.j_lim[j] = X.j_lim[j];
+    S.j_state[j] = X.jc[j].state;
+  }
+}
+
+// One env step (step_world_motor): substeps x the whole pipeline at motor
+// speeds ms (J,). X.inv_m/inv_i/lcx/lcy must hold body_constants.
+PHYS_FN void step(const SpecF& F, const SpecI& I, const float* ms, State& S,
+                  Work& X) {
+  bool motor_changed[MJ];
+  for (int j = 0; j < I.nj; ++j)
+    motor_changed[j] = ms[j] != S.prev_motor[j] && I.j_valid[j];
+  for (int s = 0; s < I.substeps; ++s) {
+    presolve(F, I, S, X);
+    warm_start(F, I, X);
+    velocity_solve(F, I, ms, X);
+    position_solve(F, I, S, X);
+    finalize(F, I, motor_changed, S, X);
+  }
+  for (int j = 0; j < I.nj; ++j) S.prev_motor[j] = ms[j];
+}
+
+}  // namespace phys

@@ -1,10 +1,16 @@
 """Batched rollout collection into barrel shards, on the card.
 
-The port of boxlcd_tpu/data/collect.py's per-step path (`make_rollout_fn`):
-reset and step run over a leading worlds axis, a Python loop runs over time,
-and every step renders its exact LCD frames through the CUDA raster kernel
-(render/cuda_raster.py); whole [B, T, ...] episode tensors stay on the device
-until the host writes the finished barrels.
+The port of boxlcd_tpu/data/collect.py, both configurations:
+- the megakernel path (`make_mega_rollout_fn`, the default on the card): the
+  physics of whole episodes in rollout-megakernel launches
+  (engine/mega.py), then one trajectory-raster launch for all frames
+  (render/traj_raster.py);
+- the per-step path (`make_rollout_fn`, `collect_mega=0` and the CPU):
+  reset and step run over a leading worlds axis, a Python loop runs over
+  time, and every step renders its exact LCD frames through the per-frame
+  raster kernel (render/cuda_raster.py).
+Whole [B, T, ...] episode tensors stay on the device until the host writes
+the finished barrels.
 
 Barrel layout matches the reference exactly (research/data.py:50-77): npz
 `{timestamp}-{index}-{ep_len}.barrel.npz` with `action` [1000, T, act] plus
@@ -21,8 +27,9 @@ import numpy as np
 import torch
 
 from boxlcd_tpu_torch.data.dataset import BARREL_SIZE
-from boxlcd_tpu_torch.engine import physics
+from boxlcd_tpu_torch.engine import mega, physics
 from boxlcd_tpu_torch.envs.env import Env
+from boxlcd_tpu_torch.render import raster, traj_raster
 
 
 def pack_bits(lcd):
@@ -47,7 +54,6 @@ def make_rollout_fn(env, policy_fn=None, pack_lcd=False):
   (t, obs) -> (B, act).
   """
   T = int(env.G.ep_len)
-  act_size = env.act_size
   pack_lcd = pack_lcd and env.lcd_w % 8 == 0
 
   def core(states, actions):
@@ -70,9 +76,78 @@ def make_rollout_fn(env, policy_fn=None, pack_lcd=False):
     states = Env.reset(env, gen, batch_size)
     if policy_fn is not None:
       return core(states, lambda t, obs: policy_fn(gen, obs))
-    u = torch.rand((batch_size, T, act_size), generator=gen,
-                   device=env.device)
-    return core(states, torch.clamp(u * 2.0 - 1.0, min=-1.0))
+    return core(states, _random_actions(env, gen, batch_size, T))
+
+  batch_rollout.core = core
+  return batch_rollout, T
+
+
+def _random_actions(env, gen, batch_size, T):
+  u = torch.rand((batch_size, T, env.act_size), generator=gen,
+                 device=env.device)
+  return torch.clamp(u * 2.0 - 1.0, min=-1.0)
+
+
+def make_mega_rollout_fn(env, pack_lcd=False):
+  """The megakernel path (boxlcd_tpu's make_mega_rollout_fn): random-policy
+  episodes as (gen, batch) -> dict of [B, T, ...] episode tensors, and T.
+
+  All physics of an episode runs in one rollout-megakernel launch
+  (engine/mega.py); the exact LCD frames come from one trajectory-raster
+  launch over the T frames
+  (render/traj_raster.py) where the spec, a frame of W <= 32 and the exact
+  raster allow, else from observe_pose. Resets and actions are drawn
+  exactly as make_rollout_fn draws them, so for one seed both
+  configurations get the same inputs (no padding of B). The episode dict
+  carries `obs_ok`: whether 16 spread frames, re-rendered one by one through
+  raster.lcd_render (the per-frame kernel on the card), equal the
+  trajectory's frames bit for bit.
+
+  The returned function has `.core(states, actions)` with actions a
+  (B, T, act) tensor."""
+  spec = env.spec
+  T = int(env.G.ep_len)
+  n, W, H = spec.n, env.lcd_w, env.lcd_h
+  pack_lcd = pack_lcd and W % 8 == 0
+  rollout = mega.make_rollout(spec, T)
+  use_tr = (traj_raster.supports(spec) and W <= 32
+            and str(env.G.get('raster', 'exact')) == 'exact')
+  trender = traj_raster.make_traj_render(spec, W, H) if use_tr else None
+
+  def core(states, actions):
+    B = states.c.shape[0]
+    ms = physics.motor_speeds(spec, actions).transpose(0, 1).contiguous()
+    # o_t is the pose BEFORE action t: the reset pose, then the post-step
+    # poses 0..T-2 (the final action of a barrel is meaningless)
+    pose0 = torch.cat([states.c.permute(1, 2, 0),
+                       states.a.T[:, None]], 1)[None]          # (1, n, 3, B)
+    _, traj = rollout(states, ms)
+    poses = torch.cat([pose0, traj['stream']])[:T]             # (T, n, 3, B)
+    cs = poses[:, :, :2].permute(0, 3, 1, 2).reshape(T * B, n, 2)
+    as_ = poses[:, :, 2].permute(0, 2, 1).reshape(T * B, n)
+    ic = states.is_circle[None].expand(T, B, n).reshape(T * B, n)
+    if use_tr:
+      rows = trender.rows(poses, states.is_circle)               # (T, B, H)
+      obs = env.observe_pose(ic, cs, as_, lcd=False)
+      obs['lcd'] = raster.unpack_rows(rows, W).reshape(T * B, H, W)
+    else:
+      obs = env.observe_pose(ic, cs, as_)
+    chk = torch.as_tensor(np.linspace(0, T * B - 1, 16).astype(np.int64),
+                          device=cs.device)
+    want = raster.lcd_render(spec, ic[chk], cs[chk].contiguous(),
+                             as_[chk].contiguous(), W, H)
+    obs_ok = (obs['lcd'][chk] == want).all()
+    out = {k: v.reshape(T, B, *v.shape[1:]).transpose(0, 1)
+           for k, v in obs.items()}
+    out['lcd'] = pack_bits(out['lcd']) if pack_lcd else \
+        out['lcd'].to(torch.uint8)
+    out['action'] = actions
+    out['obs_ok'] = obs_ok
+    return out
+
+  def batch_rollout(gen, batch_size):
+    states = Env.reset(env, gen, batch_size)
+    return core(states, _random_actions(env, gen, batch_size, T))
 
   batch_rollout.core = core
   return batch_rollout, T
@@ -97,10 +172,12 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
   """Fill `num_barrels` shards of BARREL_SIZE episodes each; returns the
   generator to continue from.
 
-  Every configuration runs the per-step path (make_rollout_fn): the rollout
-  megakernel that boxlcd_tpu selects on an accelerator (`collect_mega`) is
-  not ported yet, so `collect_mega` is ignored. Mesh sharding (`mesh`) and
-  the native barrel format are not ported either and raise."""
+  As boxlcd_tpu does on an accelerator: on a CUDA device the megakernel path
+  (make_mega_rollout_fn) when mega.supports(spec) and G.collect_mega
+  (default 1); the per-step path (make_rollout_fn) on the CPU or with
+  collect_mega=0. The megakernel path's render tripwire raises before any
+  barrel is written. Mesh sharding (`mesh`) and the native barrel format are
+  not ported and raise."""
   if str(G.get('mesh', '') or ''):
     raise ValueError('mesh-sharded collection is not ported yet')
   if G.get('barrel_format', 'npz') != 'npz':
@@ -130,7 +207,22 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
       raise ValueError(f'batch size {batch_size} must divide barrel size '
                        f'{BARREL_SIZE}')
     per_dispatch, reps = 1, BARREL_SIZE // batch_size
-  fn, T = make_rollout_fn(env, pack_lcd=True)
+  use_mega = False
+  if env.device.type == 'cuda':
+    use_mega = mega.supports(env.spec) and bool(int(G.get('collect_mega', 1)))
+  if use_mega:
+    fn, T = make_mega_rollout_fn(env, pack_lcd=True)
+  else:
+    fn, T = make_rollout_fn(env, pack_lcd=True)
+
+  def collect_chunk():
+    traj = {k: v.cpu().numpy() for k, v in fn(gen, batch_size).items()}
+    ok = traj.pop('obs_ok', None)
+    if ok is not None and not bool(ok):
+      raise RuntimeError(
+          'collect: the trajectory raster\'s frames differ from the per-frame '
+          'render of the same poses; refusing to write barrels')
+    return traj
 
   def write_barrel(traj, bi):
     action = traj.pop('action')
@@ -144,8 +236,7 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
   bi = 0
   while bi < num_barrels:
     t0 = time.time()
-    chunks = [{k: v.cpu().numpy() for k, v in fn(gen, batch_size).items()}
-              for _ in range(reps)]
+    chunks = [collect_chunk() for _ in range(reps)]
     traj = chunks[0] if reps == 1 else \
         {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
     n = min(per_dispatch, num_barrels - bi)

@@ -1,0 +1,254 @@
+"""Rollout megakernel: T env steps in one launch, csrc/mega_rollout.cu and its
+wrapper.
+
+The port of boxlcd_tpu/engine/mega.py (`make_rollout`, whose pl.pallas_call
+runs the whole substep pipeline for T steps per world tile). The kernel runs
+every substep of engine/physics.py / engine/collision.py for T steps, one
+thread per world: velocity integration and damping, the wall and body-pair
+narrowphase (circle-circle, polygon-circle, polygon-polygon SAT + clip, with
+RANDOM shapes chosen per world), warm-start matching by contact id,
+constraint init, `vel_iters` Gauss-Seidel sweeps (revolute joints with motor
+and limits, the 2-point block LCP), position integration and `pos_iters` NGS
+with Box2D's per-world exit, island sleeping, and the warm-start writeback.
+It writes each step's poses into a pose stream (T, N, 3, B) (x, y, angle;
+worlds minor), the layout render/traj_raster.py reads.
+
+One build serves every env: the spec goes in as two small tables
+(`spec_tables`, laid out as csrc/physics_stages.cuh's SpecF / SpecI) under
+compile-time maxima that cover the env zoo; a spec beyond them raises
+ValueError.
+
+`solver_exit_tol`: the kernel, like the plain version (physics.velocity_solve),
+stops each world's velocity iterations on its own once a sweep's largest
+impulse delta is <= the tolerance. boxlcd_tpu's kernel stops a whole
+1024-world tile on the tile's largest delta (mega.py:1211-1227). At the
+default solver_exit_tol = 0 the two are the same.
+
+For tensors on the CPU the rollout takes the plain version (T calls of
+physics.step_world_motor); for tensors on the card it launches the kernel or
+raises. LAUNCHES counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from boxlcd_tpu_torch import _build
+from boxlcd_tpu_torch.engine import physics
+from boxlcd_tpu_torch.engine.physics import WorldState
+from boxlcd_tpu_torch.engine.spec import RANDOM, WorldSpec
+
+LAUNCHES = 0
+
+# csrc/physics_stages.cuh's compile-time maxima
+MAX_BODIES, MAX_JOINTS, MAX_PAIRS, MAX_WALLS, MAX_VERTS = 18, 16, 15, 4, 8
+
+# WorldState fields the kernel updates, in csrc/mega_rollout.cu's Ptrs order
+_STATE_FIELDS = ('c', 'a', 'v', 'w', 'sleep_time', 'wc_imp', 'wc_id',
+                 'pc_imp', 'pc_id', 'j_imp', 'j_mot', 'j_lim', 'j_ref',
+                 'prev_motor', 'j_state')
+
+
+def supports(spec: WorldSpec) -> bool:
+  """boxlcd_tpu's rule: joints never attach to RANDOM-shape bodies, and a
+  RANDOM body's two mass variants share a local center."""
+  for j in range(spec.jn):
+    for b in (int(spec.j_parent[j]), int(spec.j_child[j])):
+      if int(spec.shape_static[b]) == RANDOM:
+        return False
+  for i in range(spec.n):
+    if int(spec.shape_static[i]) == RANDOM and not np.allclose(
+        spec.local_center[i, 0], spec.local_center[i, 1]):
+      return False
+  return True
+
+
+def check_limits(spec: WorldSpec):
+  """Raise ValueError for a spec beyond the kernel's compile-time maxima."""
+  sizes = {'bodies': (spec.n, MAX_BODIES),
+           'joint slots': (len(spec.j_parent), MAX_JOINTS),
+           'pair slots': (len(spec.pair_a), MAX_PAIRS),
+           'walls': (len(spec.wall_offset), MAX_WALLS),
+           'polygon vertices': (spec.verts.shape[1], MAX_VERTS)}
+  for what, (got, most) in sizes.items():
+    if got > most:
+      raise ValueError(f'megakernel: {got} {what}, at most {most}')
+
+
+def _pad(x, shape, dtype):
+  out = np.zeros(shape, dtype)
+  x = np.asarray(x, dtype)
+  out[tuple(slice(0, s) for s in x.shape)] = x
+  return out
+
+
+def spec_tables(spec: WorldSpec):
+  """(float32 table, int32 table) in csrc/physics_stages.cuh's SpecF / SpecI
+  layout. Derived constants come from physics.consts, as the plain version
+  uses them."""
+  check_limits(spec)
+  K = physics.consts(spec, 'cpu')
+  k = lambda t: t.numpy() if torch.is_tensor(t) else np.asarray(t)
+  NB, NJ, NP, NW, NV = MAX_BODIES, MAX_JOINTS, MAX_PAIRS, MAX_WALLS, MAX_VERTS
+  f32 = np.float32
+  ftab = [
+      _pad([spec.dt, spec.solver_exit_tol], (2,), f32), k(K.dtg),
+      _pad(spec.inv_m, (NB, 2), f32), _pad(spec.inv_i, (NB, 2), f32),
+      _pad(spec.local_center, (NB, 2, 2), f32), _pad(spec.radius, (NB,), f32),
+      _pad(k(K.verts_com), (NB, NV, 2), f32),
+      _pad(k(K.normals), (NB, NV, 2), f32),
+      _pad(k(K.lin_div), (NB,), f32), _pad(k(K.ang_div), (NB,), f32),
+      _pad(k(K.w_mu), (NB,), f32), _pad(k(K.w_e), (NB,), f32),
+      _pad(spec.wall_normal, (NW, 2), f32), _pad(spec.wall_offset, (NW,), f32),
+      _pad(k(K.p_mu), (NP,), f32), _pad(k(K.p_e), (NP,), f32),
+      _pad(spec.j_anchor_a, (NJ, 2), f32), _pad(spec.j_anchor_b, (NJ, 2), f32),
+      _pad(spec.j_lower, (NJ,), f32), _pad(spec.j_upper, (NJ,), f32),
+      _pad(K.j_cap, (NJ,), f32), _pad(k(K.j_validf), (NJ,), f32),
+  ]
+  n = spec.n
+  i32 = np.int32
+  itab = [
+      np.array([n, len(spec.wall_offset), spec.jn, len(spec.j_parent),
+                len(spec.pair_a), spec.substeps, spec.vel_iters,
+                spec.pos_iters, int(spec.allow_sleep),
+                max(1, int(np.ceil(np.log2(max(n, 2))))) + 1], i32),
+      _pad(spec.nverts, (NB,), i32),
+      _pad(spec.pair_a, (NP,), i32), _pad(spec.pair_b, (NP,), i32),
+      _pad(spec.pair_valid, (NP,), i32),
+      _pad(spec.j_parent, (NJ,), i32), _pad(spec.j_child, (NJ,), i32),
+      _pad(spec.j_limited, (NJ,), i32), _pad(k(K.j_equal), (NJ,), i32),
+      _pad(spec.j_valid, (NJ,), i32),
+  ]
+  return (np.concatenate([x.ravel() for x in ftab]).astype(f32),
+          np.concatenate([x.ravel() for x in itab]).astype(i32))
+
+
+def _lib():
+  lib = _build.load('mega_rollout')
+  fn = lib.mega_rollout_launch
+  if fn.argtypes is None:
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    nf, ni = ctypes.c_int(), ctypes.c_int()
+    lib.mega_table_sizes(ctypes.byref(nf), ctypes.byref(ni))
+    fn.table_sizes = (nf.value, ni.value)
+  return fn
+
+
+def _traj(stream):
+  """Pose views of a (T, N, 3, B) stream: c (T, B, N, 2), a (T, B, N)."""
+  v = stream.permute(0, 3, 1, 2)
+  return {'c': v[..., :2], 'a': v[..., 2], 'stream': stream}
+
+
+class Rollout:
+  """rollout(states, motor_speed (T, B, J)) -> (states', traj): T env steps
+  of every world. traj holds the post-step poses c (T, B, N, 2) and
+  a (T, B, N) as views of the pose stream (T, N, 3, B), under 'stream'."""
+
+  def __init__(self, spec: WorldSpec, T: int):
+    check_limits(spec)
+    if not supports(spec):
+      raise ValueError('megakernel: unsupported spec (see supports())')
+    self.spec, self.T = spec, int(T)
+    self._tables = spec_tables(spec)
+    self._dev = {}
+
+  def __call__(self, states: WorldState, motor_speed):
+    if states.c.is_cuda:
+      return self.kernel_rollout(states, motor_speed)
+    return self.plain_rollout(states, motor_speed)
+
+  def plain_rollout(self, states: WorldState, motor_speed):
+    """T calls of physics.step_world_motor, recording the poses."""
+    spec = self.spec
+    B = states.c.shape[0]
+    stream = torch.empty((self.T, spec.n, 3, B), device=states.c.device)
+    for t in range(self.T):
+      states = physics.step_world_motor(spec, states, motor_speed[t])
+      stream[t, :, :2] = states.c.permute(1, 2, 0)
+      stream[t, :, 2] = states.a.T
+    return states, _traj(stream)
+
+  def _check(self, states: WorldState, motor_speed):
+    spec = self.spec
+    B = states.c.shape[0]
+    n, nw = spec.n, len(spec.wall_offset)
+    P, J = len(spec.pair_a), len(spec.j_parent)
+    want = {'c': (n, 2), 'a': (n,), 'v': (n, 2), 'w': (n,),
+            'is_circle': (n,), 'sleep_time': (n,),
+            'wc_imp': (n, nw, 2, 2), 'wc_id': (n, nw, 2),
+            'pc_imp': (P, 2, 2), 'pc_id': (P, 2), 'j_imp': (J, 2),
+            'j_mot': (J,), 'j_lim': (J,), 'j_ref': (J,), 'prev_motor': (J,),
+            'j_state': (J,)}
+    dev = states.c.device
+    for f, shape in want.items():
+      t = getattr(states, f)
+      dtype = (torch.bool if f == 'is_circle' else torch.int32
+               if f in physics._INT_FIELDS else torch.float32)
+      if not t.is_cuda or t.device != dev:
+        raise ValueError(f'{f} must lie on the same CUDA device as c')
+      if t.dtype != dtype or tuple(t.shape) != (B, *shape):
+        raise ValueError(f'{f} must be {dtype} {(B, *shape)}, got {t.dtype} '
+                         f'{tuple(t.shape)}')
+      if not t.is_contiguous():
+        raise ValueError(f'{f} must be contiguous')
+    ms = motor_speed
+    if not ms.is_cuda or ms.device != dev:
+      raise ValueError('motor_speed must lie on the same CUDA device as c')
+    if ms.dtype != torch.float32 or tuple(ms.shape) != (self.T, B, J):
+      raise ValueError(f'motor_speed must be float32 {(self.T, B, J)}, got '
+                       f'{ms.dtype} {tuple(ms.shape)}')
+    if not ms.is_contiguous():
+      raise ValueError('motor_speed must be contiguous')
+
+  def _device_tables(self, fn, device):
+    key = str(device)
+    if key not in self._dev:
+      ftab, itab = self._tables
+      if (len(ftab), len(itab)) != fn.table_sizes:
+        raise RuntimeError(f'spec tables hold {len(ftab)}/{len(itab)} words, '
+                           f'the kernel reads {fn.table_sizes}')
+      self._dev[key] = (torch.as_tensor(ftab, device=device),
+                        torch.as_tensor(itab, device=device))
+    return self._dev[key]
+
+  def kernel_rollout(self, states: WorldState, motor_speed):
+    """Launch csrc/mega_rollout.cu on the current stream."""
+    global LAUNCHES
+    self._check(states, motor_speed)
+    spec = self.spec
+    B = states.c.shape[0]
+    dev = states.c.device
+    out = {f: getattr(states, f).clone() for f in _STATE_FIELDS}
+    stream = torch.empty((self.T, spec.n, 3, B), device=dev)
+    new = states._replace(**out, ep_t=states.ep_t + self.T)
+    if B == 0:
+      return new, _traj(stream)
+    fn = _lib()
+    ftab, itab = self._device_tables(fn, dev)
+    ptrs = [ftab, itab, states.is_circle, *(out[f] for f in _STATE_FIELDS),
+            motor_speed, stream]
+    arr = (ctypes.c_void_p * len(ptrs))(*(t.data_ptr() for t in ptrs))
+    err = fn(ctypes.cast(arr, ctypes.c_void_p), B, self.T,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+      raise RuntimeError(f'mega_rollout launch failed: cudaError {err}')
+    LAUNCHES += 1
+    return new, _traj(stream)
+
+
+_ROLLOUTS = {}
+
+
+def make_rollout(spec: WorldSpec, T: int) -> Rollout:
+  """The T-step rollout of `spec`; cached (the cache holds the spec, so its
+  id is never reused)."""
+  key = (id(spec), int(T))
+  hit = _ROLLOUTS.get(key)
+  if hit is None or hit.spec is not spec:
+    hit = _ROLLOUTS[key] = Rollout(spec, T)
+  return hit

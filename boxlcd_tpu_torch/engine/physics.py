@@ -923,18 +923,22 @@ def _finalize(spec: WorldSpec, K: Consts, st: WorldState, b: SolveBundle,
       j_imp=b.j_imp, j_mot=b.j_mot, j_lim=b.j_lim, j_state=aux.j_state)
 
 
-def step_world_batch(spec: WorldSpec, states: WorldState, actions
-                     ) -> WorldState:
-  """Advance every world one env step = spec.substeps physics substeps.
+def motor_speeds(spec: WorldSpec, actions):
+  """(..., act_size) actions -> (..., J) motor speeds.
 
   Action semantics follow the reference (boxLCD/world_env.py:434-444):
   speed control sets motor speed to gain * clip(action, -1, 1) with fixed max
-  torque. Joints with equal limits are locked and take no action.
-  actions: (B, act_size)."""
-  K = consts(spec, states.c.device)
+  torque. Joints with equal limits are locked and take no action."""
+  K = consts(spec, actions.device)
   act = torch.clamp(actions, -1.0, 1.0)
-  a_j = act[:, K.a_idx] * K.has_act
-  motor_speed = K.j_speed * a_j                                  # (B, J)
+  return K.j_speed * (act[..., K.a_idx] * K.has_act)
+
+
+def step_world_motor(spec: WorldSpec, states: WorldState, motor_speed
+                     ) -> WorldState:
+  """Advance every world one env step = spec.substeps physics substeps, at
+  the given motor speeds (B, J)."""
+  K = consts(spec, states.c.device)
   # a changed motor speed wakes the joint's bodies (pybox2d SetMotorSpeed)
   motor_changed = (motor_speed != states.prev_motor) & K.j_valid
   for _ in range(spec.substeps):
@@ -943,6 +947,13 @@ def step_world_batch(spec: WorldSpec, states: WorldState, actions
     c, a = _position_solve(spec, states, bundle, aux)
     states = _finalize(spec, K, states, bundle, aux, motor_changed, c, a)
   return states._replace(ep_t=states.ep_t + 1, prev_motor=motor_speed)
+
+
+def step_world_batch(spec: WorldSpec, states: WorldState, actions
+                     ) -> WorldState:
+  """Advance every world one env step; actions: (B, act_size), mapped to
+  motor speeds by motor_speeds."""
+  return step_world_motor(spec, states, motor_speeds(spec, actions))
 
 
 def step_world(spec: WorldSpec, state: WorldState, action) -> WorldState:

@@ -45,17 +45,21 @@ def _lib():
   return fn
 
 
-class BatchedRender:
-  """render(is_circle (B, N), c (B, N, 2), angle (B, N)) -> (B, H, W) bool
-  frames for one spec and frame size (W <= 32)."""
+class RasterConsts:
+  """The per-spec constant tables both raster kernels read (shape flags,
+  vertex counts, radii, draw vertices, local-center y, the PIL ellipse row
+  table), with the table's largest diameter `dmax` and the pixel `scale`,
+  for one spec and frame size (W <= 32)."""
 
   def __init__(self, spec: WorldSpec, width: int, height: int):
     if not raster.kernel_supported(spec, width, height):
       raise ValueError(f'the row-bitmask raster needs W <= 32, got {width}')
-    self.spec, self.width, self.height = spec, width, height
+    if spec.draw_verts.shape[1] > MAX_VERTS:
+      raise ValueError('too many polygon vertices for the kernel')
     _, tblbits = raster._tables(spec, width, height)
     self.dmax = tblbits.shape[0] - 1
     self.scale = raster._scale(spec, width)
+    self.max_verts = spec.draw_verts.shape[1]
     self._host = {
         'shape_static': np.ascontiguousarray(spec.shape_static, np.int32),
         'nverts': np.ascontiguousarray(spec.nverts, np.int32),
@@ -66,12 +70,25 @@ class BatchedRender:
     }
     self._dev = {}
 
-  def _consts(self, device):
+  def tables(self, device):
+    """The tables as tensors on `device`, in the kernels' argument order."""
     key = str(device)
     if key not in self._dev:
       self._dev[key] = {k: torch.as_tensor(v, device=device)
                         for k, v in self._host.items()}
     return self._dev[key]
+
+  def pointers(self, device):
+    return [t.data_ptr() for t in self.tables(device).values()]
+
+
+class BatchedRender:
+  """render(is_circle (B, N), c (B, N, 2), angle (B, N)) -> (B, H, W) bool
+  frames for one spec and frame size (W <= 32)."""
+
+  def __init__(self, spec: WorldSpec, width: int, height: int):
+    self.consts = RasterConsts(spec, width, height)
+    self.spec, self.width, self.height = spec, width, height
 
   def __call__(self, is_circle, c, angle):
     rows = self.rows(is_circle, c, torch.cos(angle), torch.sin(angle))
@@ -106,20 +123,15 @@ class BatchedRender:
                          f'{tuple(t.shape)}')
       if not t.is_contiguous():
         raise ValueError(f'{name} must be contiguous')
-    if spec.draw_verts.shape[1] > MAX_VERTS:
-      raise ValueError('too many polygon vertices for the kernel')
-    K = self._consts(c.device)
+    K = self.consts
     out = torch.empty((B, self.height), dtype=torch.int32, device=c.device)
     if B == 0:
       return out
     stream = torch.cuda.current_stream(c.device).cuda_stream
     err = _lib()(is_circle.data_ptr(), c.data_ptr(), cosa.data_ptr(),
-                 sina.data_ptr(), K['shape_static'].data_ptr(),
-                 K['nverts'].data_ptr(), K['radius'].data_ptr(),
-                 K['draw_verts'].data_ptr(), K['lc'].data_ptr(),
-                 K['tbl'].data_ptr(), B, N, spec.draw_verts.shape[1],
-                 self.height, self.width, self.dmax, self.scale,
-                 out.data_ptr(), stream)
+                 sina.data_ptr(), *K.pointers(c.device), B, N, K.max_verts,
+                 self.height, self.width, K.dmax, K.scale, out.data_ptr(),
+                 stream)
     if err != 0:
       raise RuntimeError(f'lcd_raster launch failed: cudaError {err}')
     LAUNCHES += 1

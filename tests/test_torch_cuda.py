@@ -1,16 +1,20 @@
-"""The CUDA raster kernel on the card vs its plain torch version.
+"""The CUDA kernels on the card vs their plain torch versions: the per-frame
+LCD raster, the trajectory raster (bit for bit) and the rollout megakernel
+(within tests/test_mega.py's bounds).
 
 Marked `cuda`: these tests need an NVIDIA GPU and nvcc, and skip inside the
 `cuda_device` fixture where there is none. Run them on the card with
 `python -m pytest tests/test_torch_cuda.py -m cuda`.
 """
+import dataclasses
+
 import pytest
 import torch
 
 import boxlcd_tpu_torch
-from boxlcd_tpu_torch.engine import physics
+from boxlcd_tpu_torch.engine import mega, physics
 from boxlcd_tpu_torch.envs.env import Env
-from boxlcd_tpu_torch.render import cuda_raster, raster
+from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
 
 pytestmark = pytest.mark.cuda
 ITERS = {'vel_iters': 8, 'pos_iters': 4}
@@ -70,3 +74,90 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                        cosa, sina)
   with pytest.raises(ValueError):       # mixed devices
     render.kernel_rows(ic.cpu(), c, cosa, sina)
+
+
+# tests/test_mega.py's bounds: (median, tail threshold, tail fraction)
+MEGA_BOUNDS = {'Urchin': (1e-4, 5e-3, 0.03), 'Object3': (1.5e-3, 5e-2, 0.2)}
+MEGA_FIELDS = ['c', 'a', 'v', 'w', 'sleep_time', 'wc_imp', 'j_imp', 'j_mot',
+               'j_lim', 'j_state', 'prev_motor', 'pc_imp', 'pc_id']
+
+
+def _mega_inputs(env, batch, T, dev):
+  gen = torch.Generator(device=dev).manual_seed(0)
+  st = Env.reset(env, gen, batch)
+  acts = torch.cat([torch.rand((4, batch, env.act_size), generator=gen,
+                               device=dev) * 2 - 1,
+                    torch.zeros((T - 4, batch, env.act_size), device=dev)])
+  return st, physics.motor_speeds(env.spec, acts).contiguous()
+
+
+@pytest.mark.parametrize('env_name', ['Urchin', 'LuxoCube', 'Object3',
+                                      'Bounce2'])
+def test_traj_kernel_equals_plain(cuda_device, env_name):
+  env = boxlcd_tpu_torch.env_map[env_name](ITERS, device=cuda_device)
+  st, ms = _mega_inputs(env, 2048, 6, cuda_device)
+  _, traj = mega.make_rollout(env.spec, 6)(st, ms)
+  poses = traj['stream']
+  # half of the worlds shifted so that bodies cross the frame's edges
+  shift = torch.zeros_like(poses)
+  shift[:, :, 0, 1::2] = 0.5 * float(env.spec.width)
+  poses = (poses + shift).contiguous()
+  W = min(env.lcd_w, 32)
+  render = traj_raster.make_traj_render(env.spec, W, env.lcd_h)
+  ang = poses[:, :, 2]
+  cosa, sina = torch.cos(ang), torch.sin(ang)
+  before = traj_raster.LAUNCHES
+  got = render.kernel_rows(poses, cosa, sina, st.is_circle)
+  torch.cuda.synchronize()
+  assert traj_raster.LAUNCHES == before + 1
+  want = render.plain_rows(poses, cosa, sina, st.is_circle)
+  assert got.dtype == torch.int32 and got.shape == (6, 2048, env.lcd_h)
+  assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize('env_name', list(MEGA_BOUNDS))
+def test_megakernel_within_bounds_of_plain(cuda_device, env_name):
+  med_bound, tail_at, tail_frac = MEGA_BOUNDS[env_name]
+  env = boxlcd_tpu_torch.env_map[env_name](ITERS, device=cuda_device)
+  B, T = 1024, 8
+  st, ms = _mega_inputs(env, B, T, cuda_device)
+  rollout = mega.make_rollout(env.spec, T)
+  before = mega.LAUNCHES
+  new, traj = rollout.kernel_rollout(st, ms)
+  torch.cuda.synchronize()
+  assert mega.LAUNCHES == before + 1
+  ref, ref_traj = rollout.plain_rollout(st, ms)
+  assert torch.equal(new.ep_t, st.ep_t + T)
+  for f in MEGA_FIELDS:
+    err = (getattr(ref, f).float() - getattr(new, f).float()).abs()
+    err = err.reshape(B, -1).max(1).values
+    assert float(err.median()) < med_bound, f
+    assert float((err > tail_at).float().mean()) < tail_frac, f
+  for t in (0, 2):
+    assert float((traj['c'][t] - ref_traj['c'][t]).abs().max()) < 1e-4
+    assert float((traj['a'][t] - ref_traj['a'][t]).abs().max()) < 1e-4
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+  env = boxlcd_tpu_torch.env_map['Urchin'](ITERS, device=cuda_device)
+  st, ms = _mega_inputs(env, 8, 5, cuda_device)
+  rollout = mega.make_rollout(env.spec, 5)
+  with pytest.raises(ValueError):       # float64 motor speeds
+    rollout.kernel_rollout(st, ms.double())
+  with pytest.raises(ValueError):       # non-contiguous motor speeds
+    rollout.kernel_rollout(st, ms.transpose(1, 2).contiguous().transpose(1, 2))
+  with pytest.raises(ValueError):       # a state field on the CPU
+    rollout.kernel_rollout(st._replace(v=st.v.cpu()), ms)
+  with pytest.raises(ValueError):       # a spec beyond the kernel's maxima
+    mega.make_rollout(dataclasses.replace(env.spec, n=mega.MAX_BODIES + 1), 5)
+  _, traj = rollout.kernel_rollout(st, ms)
+  poses = traj['stream']
+  render = traj_raster.make_traj_render(env.spec, env.lcd_w, env.lcd_h)
+  cosa, sina = torch.cos(poses[:, :, 2]), torch.sin(poses[:, :, 2])
+  with pytest.raises(ValueError):       # float64 poses
+    render.kernel_rows(poses.double(), cosa, sina, st.is_circle)
+  with pytest.raises(ValueError):       # non-contiguous poses
+    render.kernel_rows(poses.transpose(0, 1).contiguous().transpose(0, 1),
+                       cosa, sina, st.is_circle)
+  with pytest.raises(ValueError):       # mixed devices
+    render.kernel_rows(poses, cosa, sina, st.is_circle.cpu())
