@@ -2,9 +2,11 @@
 
 The same learned-simulator testbed for one NVIDIA H100: fixed-shape batched
 2D rigid-body physics in torch over a leading worlds axis, the exact LCD
-raster as a hand-written CUDA kernel (csrc/lcd_raster.cu), and barrel
-collection on top. Entry points run on the card unless the caller passes
-another device. Importing the package touches no device and builds nothing.
+raster, barrel collection and the per-step batched env (research.wrappers)
+on top, and hand-written CUDA kernels (csrc/) for every kernel the JAX
+package wrote for the TPU. Entry points run on the card unless the caller
+passes another device. Importing the package touches no device and builds
+nothing.
 """
 __version__ = '0.1.0'
 

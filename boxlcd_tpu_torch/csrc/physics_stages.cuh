@@ -11,8 +11,10 @@
 // plain version up to the order of a few sums and cosf/sinf against
 // torch.cos/torch.sin. One thread owns one world; topology and constants
 // come from the SpecF/SpecI tables (filled by engine/mega.py), sized by
-// compile-time maxima that cover the whole env zoo. velocity_sweep and
-// position_solve are the stages the whole-batch solver kernels can reuse.
+// compile-time maxima that cover the whole env zoo. Two kernels include
+// this header: mega_rollout.cu runs every stage, and batched_solver.cu runs
+// velocity_solve and position_solve on a SolveBundle that physics.py's plain
+// presolve built; an edit of those two stages moves both kernels.
 #pragma once
 
 #include <math.h>

@@ -125,6 +125,21 @@ def spec_tables(spec: WorldSpec):
           np.concatenate([x.ravel() for x in itab]).astype(i32))
 
 
+def device_tables(tables, sizes, device, cache):
+  """The (float32, int32) spec tables as tensors on `device`, kept in
+  `cache`; raises RuntimeError unless their lengths are `sizes`, the words
+  the kernel reads."""
+  key = str(device)
+  if key not in cache:
+    ftab, itab = tables
+    if (len(ftab), len(itab)) != tuple(sizes):
+      raise RuntimeError(f'spec tables hold {len(ftab)}/{len(itab)} words, '
+                         f'the kernel reads {tuple(sizes)}')
+    cache[key] = (torch.as_tensor(ftab, device=device),
+                  torch.as_tensor(itab, device=device))
+  return cache[key]
+
+
 def _lib():
   lib = _build.load('mega_rollout')
   fn = lib.mega_rollout_launch
@@ -205,17 +220,6 @@ class Rollout:
     if not ms.is_contiguous():
       raise ValueError('motor_speed must be contiguous')
 
-  def _device_tables(self, fn, device):
-    key = str(device)
-    if key not in self._dev:
-      ftab, itab = self._tables
-      if (len(ftab), len(itab)) != fn.table_sizes:
-        raise RuntimeError(f'spec tables hold {len(ftab)}/{len(itab)} words, '
-                           f'the kernel reads {fn.table_sizes}')
-      self._dev[key] = (torch.as_tensor(ftab, device=device),
-                        torch.as_tensor(itab, device=device))
-    return self._dev[key]
-
   def kernel_rollout(self, states: WorldState, motor_speed):
     """Launch csrc/mega_rollout.cu on the current stream."""
     global LAUNCHES
@@ -229,7 +233,7 @@ class Rollout:
     if B == 0:
       return new, _traj(stream)
     fn = _lib()
-    ftab, itab = self._device_tables(fn, dev)
+    ftab, itab = device_tables(self._tables, fn.table_sizes, dev, self._dev)
     ptrs = [ftab, itab, states.is_circle, *(out[f] for f in _STATE_FIELDS),
             motor_speed, stream]
     arr = (ctypes.c_void_p * len(ptrs))(*(t.data_ptr() for t in ptrs))

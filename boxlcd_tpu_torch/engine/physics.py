@@ -934,26 +934,41 @@ def motor_speeds(spec: WorldSpec, actions):
   return K.j_speed * (act[..., K.a_idx] * K.has_act)
 
 
-def step_world_motor(spec: WorldSpec, states: WorldState, motor_speed
-                     ) -> WorldState:
+def step_world_motor(spec: WorldSpec, states: WorldState, motor_speed,
+                     velocity_solver=None, substep_solver=None) -> WorldState:
   """Advance every world one env step = spec.substeps physics substeps, at
-  the given motor speeds (B, J)."""
+  the given motor speeds (B, J).
+
+  The solver stages run on the whole batch, so a fused kernel
+  (engine/cuda_solver.py) can take their place, as in boxlcd_tpu's
+  step_world_batch: `substep_solver(states, bundle, aux)` replaces the
+  velocity iterations, the position integration and the NGS position
+  iterations and returns `(bundle', c, a)`; `velocity_solver(bundle)`
+  replaces only the velocity iterations. With neither, the plain stages
+  run."""
   K = consts(spec, states.c.device)
   # a changed motor speed wakes the joint's bodies (pybox2d SetMotorSpeed)
   motor_changed = (motor_speed != states.prev_motor) & K.j_valid
   for _ in range(spec.substeps):
     bundle, aux = _presolve(spec, K, states, motor_speed)
-    bundle = velocity_solve(spec, bundle)
-    c, a = _position_solve(spec, states, bundle, aux)
+    if substep_solver is not None:
+      bundle, c, a = substep_solver(states, bundle, aux)
+    else:
+      if velocity_solver is None:
+        bundle = velocity_solve(spec, bundle)
+      else:
+        bundle = velocity_solver(bundle)
+      c, a = _position_solve(spec, states, bundle, aux)
     states = _finalize(spec, K, states, bundle, aux, motor_changed, c, a)
   return states._replace(ep_t=states.ep_t + 1, prev_motor=motor_speed)
 
 
-def step_world_batch(spec: WorldSpec, states: WorldState, actions
-                     ) -> WorldState:
+def step_world_batch(spec: WorldSpec, states: WorldState, actions,
+                     velocity_solver=None, substep_solver=None) -> WorldState:
   """Advance every world one env step; actions: (B, act_size), mapped to
-  motor speeds by motor_speeds."""
-  return step_world_motor(spec, states, motor_speeds(spec, actions))
+  motor speeds by motor_speeds. The solver hooks are step_world_motor's."""
+  return step_world_motor(spec, states, motor_speeds(spec, actions),
+                          velocity_solver, substep_solver)
 
 
 def step_world(spec: WorldSpec, state: WorldState, action) -> WorldState:

@@ -1,0 +1,3 @@
+"""Research stack of the port, on the boxlcd_tpu_torch substrate (the
+counterpart of the JAX package's `research/`). Ported so far: the per-step
+batched env and the goal wrappers (`research.wrappers`)."""

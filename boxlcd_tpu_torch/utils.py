@@ -6,7 +6,7 @@ torch tensors alike:
   - AttrDict            flat config object ("G")
   - A                   concise array constructor
   - mapto / rmapto      the [-1, 1] <-> physical-bounds mapping (obs contract)
-  - sortdict / nfiltlist helpers
+  - sortdict / filtlist / nfiltlist helpers
   - resolve_device      the device rule of the port's entry points
 """
 from __future__ import annotations
@@ -69,6 +69,10 @@ def subdict(d, subkeys):
 
 def sortdict(x):
   return subdict(x, sorted(x))
+
+
+def filtlist(lst, phrase):
+  return [x for x in lst if re.match(phrase, x) is not None]
 
 
 def nfiltlist(lst, phrase):

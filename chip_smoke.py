@@ -27,16 +27,33 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. reference: the per-step core on the card against the CPU, and the
      megakernel path against the per-step path on the card from one seed
      (equal actions, t = 0 frames equal bit for bit);
-  7. main path: `fill_barrels` for Urchin (vel_iters 8, pos_iters 4, 4000
+  7. solver kernel vs plain: one step_world_batch with each solver hook
+     (velocity, substep) against the plain step on the six envs of phase 5
+     and Urchin at solver_exit_tol = 1e-4, at B = 1024 from
+     tests/test_pallas.py's warm states, within its bounds, and the same
+     states with every 2-point contact's second point dropped; then T = 34
+     rollouts with the substep kernel against phase 5's plain rollouts,
+     within tests/test_mega.py's bounds;
+  8. main path: `fill_barrels` for Urchin (vel_iters 8, pos_iters 4, 4000
      worlds = 4 barrels in one dispatch, 100 steps, 16x32 LCD) through the
      megakernel path, with every kernel's launch count set to 0 just before
      and read just after (megakernel 1, traj raster 1, lcd raster 1 for the
-     tripwire); the barrels must load and hold finite, non-blank data. Then
-     the device's busy share of a whole call and the per-layer times of one
-     dispatch;
-  8. per-step path: `fill_barrels` with collect_mega=0 at 1000 worlds x 25
+     tripwire, no solver kernel); the barrels must load and hold finite,
+     non-blank data. Then the device's busy share of a whole call and the
+     per-layer times of one dispatch;
+  9. per-step path: `fill_barrels` with collect_mega=0 at 1000 worlds x 25
      steps (the lcd raster launches once a step), and the per-layer times of
-     one step at 4000 worlds.
+     one step at 4000 worlds;
+  10. solver path: bench.py's BENCH_SOLVER=sub line, Urchin, 4096 worlds x
+     100 steps of step_world_batch with the substep kernel, then
+     Env.observe, launches counted as in phase 8 (substep kernel 100 x
+     substeps, lcd raster 100, no other); the final state within
+     tests/test_mega.py's Urchin bounds of the plain path; the busy share,
+     the per-layer times of one step, and both solver kernels' times beside
+     their bounds and plain versions;
+  11. VecEnv: Luxo in body mode, 8 envs, ep_len + 1 steps (autoreset runs),
+     then LuxoCube in cube mode; numpy observations, the lcd raster at least
+     once a step, timeouts on ep_len.
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -61,10 +78,11 @@ from boxlcd_tpu_torch import _build
 from boxlcd_tpu_torch.data.collect import (
     fill_barrels, make_mega_rollout_fn, make_rollout_fn, pack_bits)
 from boxlcd_tpu_torch.data.dataset import BARREL_SIZE, RolloutDataset
-from boxlcd_tpu_torch.engine import mega, physics
+from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.engine.spec import CIRCLE
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
+from boxlcd_tpu_torch.research.wrappers import VecEnv
 from boxlcd_tpu_torch.utils import AttrDict
 
 ITERS = {'vel_iters': 8, 'pos_iters': 4}     # bench.py's headline setting
@@ -88,6 +106,13 @@ MEGA_BOUNDS = {
     'Bounce2': (1e-4, 5e-3, 0.03, None),
     'Object3': (1.5e-3, 5e-2, 0.2, None),
 }
+SOLVER_CHECK_B = 1024                       # tests/test_pallas.py's block
+VEL_FIELDS = ['v', 'w', 'c', 'a']           # test_pallas: within 1e-4
+SUB_FIELDS = ['v', 'w', 'c', 'a', 'wc_imp', 'pc_imp', 'j_imp', 'j_mot',
+              'j_lim', 'sleep_time']        # test_pallas: within 2e-3
+SOLVER_BATCH = 4096                         # bench.py's BENCH_SOLVER=sub line
+VEC_ENV, VEC_CUBE_ENV, VEC_ENVS = 'Luxo', 'LuxoCube', 8   # define_config:84
+VEC_CUBE_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 FP32_FLOPS = 67e12                          # H100 SXM, outside the tensor cores
 
@@ -116,8 +141,8 @@ def build_phase():
   for name, rec in sorted(info.items()):
     log(f'[build] {name}: nvcc {rec["seconds"]:.2f} s')
     for line in rec['log'].splitlines():
-      if 'ptxas' in line and ('registers' in line or 'spill' in line
-                              or 'stack' in line or 'Compiling' in line):
+      if 'spill' in line or 'ptxas' in line and (
+          'registers' in line or 'stack' in line or 'Compiling' in line):
         log(f'[build] {name}: {line.strip()}')
   return {n: r['seconds'] for n, r in info.items()}
 
@@ -175,10 +200,11 @@ def events_ms(fn, n):
   return start.elapsed_time(end) / n
 
 
-def profiled_ms(fn, n):
-  """Device ms per call from torch.profiler: the summed durations of the
-  kernels fn launches (gaps between them excluded), or None when the
-  profiler sees no device time."""
+def profiled(fn, n):
+  """(device ms, device events) per call from torch.profiler: the summed
+  durations of the kernels and copies fn launches (gaps between them
+  excluded), or None when the profiler sees no device time, and how many
+  there were."""
   fn()
   torch.cuda.synchronize()
   acts = [torch.profiler.ProfilerActivity.CPU,
@@ -189,10 +215,15 @@ def profiled_ms(fn, n):
     torch.cuda.synchronize()
   # only the device's own events: a CPU op's self device time repeats the
   # durations of the kernels it launched
-  us = sum(e.device_time_total for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and not getattr(e, 'is_user_annotation', False))
-  return us / 1e3 / n if us > 0 else None
+  dev = [e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, 'is_user_annotation', False)]
+  us = sum(e.device_time_total for e in dev)
+  return (us / 1e3 / n if us > 0 else None), len(dev) / n
+
+
+def profiled_ms(fn, n):
+  return profiled(fn, n)[0]
 
 
 def _fmt(ms):
@@ -429,13 +460,10 @@ def traj_phase(dev):
               frames=n_frames, times=t)
 
 
-def _mega_check(label, B, bounds, new, traj, ref, ref_traj, worst,
-                failures, sleep_min=None):
-  """Hold one megakernel run to tests/test_mega.py's bounds of its plain
-  version: per-world median and tail error of every field, poses at t = 0
-  and 2 within 1e-4, sleep share within 0.02 (and the plain version's above
-  sleep_min where given). Adds each field's worst world to `worst` and each
-  breach to `failures`."""
+def _per_world_check(label, B, bounds, new, ref, worst, failures):
+  """Hold every field of tests/test_mega.py's FIELDS to its per-world median
+  and tail bounds of ref; adds each field's worst world to `worst` and each
+  breach to `failures`. Returns the per-field 'median/tail' strings."""
   med_b, tail_at, tail_frac = bounds
   msg = []
   for f in MEGA_FIELDS:
@@ -446,6 +474,19 @@ def _mega_check(label, B, bounds, new, traj, ref, ref_traj, worst,
     msg.append(f'{f} {med:.1e}/{tail:.3f}')
     if med >= med_b or tail >= tail_frac:
       failures.append(f'{label} {f}: median {med:.2e}, tail {tail:.3f}')
+  if not torch.isfinite(new.c).all():
+    failures.append(f'{label}: non-finite poses')
+  return msg
+
+
+def _mega_check(label, B, bounds, new, traj, ref, ref_traj, worst,
+                failures, sleep_min=None, tag='mega'):
+  """Hold one rollout to tests/test_mega.py's bounds of its plain version:
+  per-world median and tail error of every field, poses at t = 0 and 2
+  within 1e-4, sleep share within 0.02 (and the plain version's above
+  sleep_min where given). Adds each field's worst world to `worst` and each
+  breach to `failures`."""
+  msg = _per_world_check(label, B, bounds, new, ref, worst, failures)
   pose_err = max(float((traj[k][t] - ref_traj[k][t]).abs().max())
                  for k in ('c', 'a') for t in (0, 2))
   if pose_err >= 1e-4:
@@ -455,9 +496,7 @@ def _mega_check(label, B, bounds, new, traj, ref, ref_traj, worst,
   if abs(f_ref - f_new) >= 0.02 or (sleep_min is not None
                                     and f_ref <= sleep_min):
     failures.append(f'{label}: sleep share {f_new:.3f} vs {f_ref:.3f}')
-  if not torch.isfinite(new.c).all():
-    failures.append(f'{label}: non-finite poses')
-  log(f'[mega] {label}: median/tail per field: {", ".join(msg)}; poses '
+  log(f'[{tag}] {label}: median/tail per field: {", ".join(msg)}; poses '
       f't=0/2 max err {pose_err:.2e}; sleep share {f_new:.3f} (plain '
       f'{f_ref:.3f})')
 
@@ -467,8 +506,10 @@ def mega_phase(dev):
   envs and bounds, then at the main path's shape (Urchin, 4000 worlds x 100
   steps of fresh random actions): the plain call timed there is held to the
   same bounds. The least sleep share is not asked of it: it shows that the
-  30 zero-action steps let worlds fall asleep, and the main path has none."""
-  failures, worst = [], {}
+  30 zero-action steps let worlds fall asleep, and the main path has none.
+  Returns the measurements and, per env, the T = 34 inputs and plain
+  rollout, which the solver phase holds its kernel rollouts to."""
+  failures, worst, refs = [], {}, {}
   for name, (*bounds, sleep_min) in MEGA_BOUNDS.items():
     env = _env(name, dev)
     B, T = MEGA_CHECK_B, MEGA_CHECK_T   # 4 random-action steps, then zeros
@@ -484,6 +525,7 @@ def mega_phase(dev):
     torch.cuda.synchronize()
     _mega_check(f'{name} B={B} T={T}', B, bounds, new, traj, ref, ref_traj,
                 worst, failures, sleep_min)
+    refs[name] = (st, ms, ref, ref_traj)
 
   # the main path's shape: Urchin, 4000 worlds, 100 steps
   env = _env(MAIN_ENV, dev)
@@ -518,7 +560,7 @@ def mega_phase(dev):
   log(f'[mega] {MAIN_ENV} B={MAIN_BATCH} T={T}: kernel {t["ms"]:.3f} ms '
       f'device (events); plain {plain_wall:.1f} ms a call (host clock); '
       f'bound {bound:.6f} ms ({by}, {flops:.3e} flops)')
-  return dict(max_abs_err=max(worst.values()), worst=worst, times=t)
+  return dict(max_abs_err=max(worst.values()), worst=worst, times=t), refs
 
 
 def reference_phase(dev):
@@ -571,11 +613,19 @@ def reference_phase(dev):
 def _zero_launches():
   torch.cuda.synchronize()
   cuda_raster.LAUNCHES = traj_raster.LAUNCHES = mega.LAUNCHES = 0
+  cuda_solver.LAUNCHES.update(velocity=0, substep=0)
 
 
 def _launches():
   return {'mega_rollout': mega.LAUNCHES, 'traj_raster': traj_raster.LAUNCHES,
-          'lcd_raster': cuda_raster.LAUNCHES}
+          'lcd_raster': cuda_raster.LAUNCHES,
+          'velocity_solver': cuda_solver.LAUNCHES['velocity'],
+          'substep_solver': cuda_solver.LAUNCHES['substep']}
+
+
+def _expect(**counts):
+  """Every kernel's launch count: 0 unless given."""
+  return dict({k: 0 for k in _launches()}, **counts)
 
 
 def _check_barrels(env, folder, n_barrels, T):
@@ -620,7 +670,7 @@ def main_path_phase(dev, smi):
         f'(megakernel path): {wall:.2f} s with barrel writes, '
         f'{MAIN_BATCH * T / wall:.1f} env-steps/s on {smi}; launches '
         f'{launches}')
-    if launches != {'mega_rollout': 1, 'traj_raster': 1, 'lcd_raster': 1}:
+    if launches != _expect(mega_rollout=1, traj_raster=1, lcd_raster=1):
       raise RuntimeError(f'main path launches {launches}: each kernel must '
                          f'launch once in one dispatch')
     _check_barrels(env, Path(tmp) / 'train', MAIN_BARRELS, T)
@@ -720,7 +770,7 @@ def per_step_phase(dev, smi):
         f'steps, collect_mega=0: {wall:.2f} s with barrel writes, '
         f'{PER_STEP_BATCH * T / wall:.1f} env-steps/s on {smi}; launches '
         f'{launches}')
-    if launches != {'mega_rollout': 0, 'traj_raster': 0, 'lcd_raster': T}:
+    if launches != _expect(lcd_raster=T):
       raise RuntimeError(f'per-step path launches {launches}')
     _check_barrels(env, Path(tmp) / 'train', 1, T)
 
@@ -732,7 +782,7 @@ def per_step_phase(dev, smi):
   frame = raster.lcd_render(env.spec, st.is_circle, st.c, st.a, env.lcd_w,
                             env.lcd_h)
   layers = {
-      'physics': (5, lambda: physics.step_world_batch(env.spec, st, act)),
+      'physics': (2, lambda: physics.step_world_batch(env.spec, st, act)),
       'raster': (20, lambda: raster.lcd_render(
           env.spec, st.is_circle, st.c, st.a, env.lcd_w, env.lcd_h)),
       'obs_packing': (20, lambda: (
@@ -747,6 +797,340 @@ def per_step_phase(dev, smi):
         f'{_fmt(d)} ({MAIN_BATCH} worlds, {smi})')
   return dict(launches=launches, wall_s=wall,
               env_steps_per_s=PER_STEP_BATCH * T / wall, layers=per_layer)
+
+
+def _warm_states(env, B, gen):
+  """tests/test_pallas.py's warm states: resets, then 3 plain steps of one
+  random action, so contacts and joint limits are in play."""
+  st = Env.reset(env, gen, B)
+  act = torch.rand((B, env.act_size), generator=gen, device=st.c.device) * 2 - 1
+  for _ in range(3):
+    st = physics.step_world_batch(env.spec, st, act)
+  return st, act
+
+
+def _max_errs(ref, new, fields):
+  return {f: float((getattr(ref, f).float() - getattr(new, f).float())
+                   .abs().max()) for f in fields}
+
+
+def drop_second_points(b):
+  """The bundle that physics._presolve builds when Box2D drops the second
+  velocity point of every 2-point contact (both points touch, the 2x2 K is
+  ill-conditioned): no block solve, zero masses and impulse on point 2,
+  while the position solve still sees both points touch. The zoo's states
+  seldom hold such a wall contact, so the check makes them."""
+  out = {}
+  for pre, imp in (('w', 'wc'), ('p', 'pc')):
+    both = (getattr(b, f'{pre}_nmass') > 0).all(-1)
+    for f in (f'{pre}_nmass', f'{pre}_tmass', imp):
+      x = getattr(b, f).clone()
+      x[..., 1] = torch.where(both if f != imp else both[..., None], 0.0,
+                              x[..., 1])
+      out[f] = x
+    out[f'{pre}_block'] = getattr(b, f'{pre}_block') & ~both
+  return b._replace(**out)
+
+
+def solver_phase(dev, mega_refs):
+  """The solver kernel against its plain version for both hooks: one
+  step_world_batch with each hook against the plain step on
+  tests/test_mega.py's six envs (and Urchin at solver_exit_tol = 1e-4) at
+  B = 1024 from test_pallas's warm states, within test_pallas's bounds
+  (velocity hook 1e-4 on v, w, c, a; substep hook 2e-3 on its ten fields),
+  and the substep kernel against the plain solves on the same states with
+  every 2-point contact's second velocity point dropped (2e-3); then a
+  T = 34 rollout (4 random-action steps, 30 zero-action steps) with
+  the substep kernel against the mega phase's plain rollout of the same
+  states and motor speeds, within test_mega's bounds."""
+  failures, worst = [], {'velocity': 0.0, 'substep': 0.0}
+  B = SOLVER_CHECK_B
+  cases = [(name, {}) for name in MEGA_BOUNDS] + [
+      (MAIN_ENV, {'solver_exit_tol': 1e-4})]
+  for name, G in cases:
+    env = _env(name, dev, **G)
+    spec = env.spec
+    st, act = _warm_states(env, B, torch.Generator(device=dev).manual_seed(4))
+    ref = physics.step_world_batch(spec, st, act)
+    vel = physics.step_world_batch(
+        spec, st, act,
+        velocity_solver=cuda_solver.make_batched_solver(spec).kernel_solve)
+    sub = physics.step_world_batch(
+        spec, st, act,
+        substep_solver=cuda_solver.make_substep_solver(spec).kernel_solve)
+    torch.cuda.synchronize()
+    ev, es = _max_errs(ref, vel, VEL_FIELDS), _max_errs(ref, sub, SUB_FIELDS)
+    label = f'{name}{" solver_exit_tol=1e-4" if G else ""} B={B}'
+    contacts = float(((ref.wc_id >= 0).sum() + (ref.pc_id >= 0).sum()) / B)
+    log(f'[solver] {label} one step, {contacts:.2f} contact points a world: '
+        f'velocity hook max err '
+        f'{", ".join(f"{f} {e:.2e}" for f, e in ev.items())}; substep hook '
+        f'max err {", ".join(f"{f} {e:.2e}" for f, e in es.items())}')
+    # the same states with every 2-point contact's second point dropped
+    K = physics.consts(spec, dev)
+    b, aux = physics._presolve(spec, K, st, physics.motor_speeds(spec, act))
+    n_w, n_p = (int((x > 0).all(-1).sum()) for x in (b.w_nmass, b.p_nmass))
+    # second points Box2D itself dropped in these states
+    nat_w, nat_p = (int((m.touch.all(-1) & ~blk).sum()) for m, blk in (
+        (aux.wallm, b.w_block), (aux.pairm, b.p_block)))
+    b = drop_second_points(b)
+    sol = cuda_solver.make_substep_solver(spec)
+    got, want = sol.kernel_solve(st, b, aux), sol.plain_solve(st, b, aux)
+    torch.cuda.synchronize()
+    ed = max(float((g - w).abs().max()) for g, w in
+             zip((got[0].v, got[0].w, got[0].wc, got[0].pc, *got[1:]),
+                 (want[0].v, want[0].w, want[0].wc, want[0].pc, *want[1:])))
+    log(f'[solver] {label} with the second points of {n_w} wall and {n_p} '
+        f'pair contacts dropped ({nat_w} wall and {nat_p} pair dropped by '
+        f'Box2D\'s rule in these states): substep kernel vs plain solves max '
+        f'err {ed:.2e} (v, w, wc, pc, c, a)')
+    es['dropped_points'] = ed
+    if max(ev.values()) >= 1e-4:
+      failures.append(f'{label}: velocity hook {ev}')
+    if max(es.values()) >= 2e-3:
+      failures.append(f'{label}: substep hook {es}')
+    worst['velocity'] = max(worst['velocity'], *ev.values())
+    worst['substep'] = max(worst['substep'], *es.values())
+
+  rollout_worst = {}
+  for name, (st, ms, ref, ref_traj) in mega_refs.items():
+    *bounds, sleep_min = MEGA_BOUNDS[name]
+    spec = _env(name, dev).spec
+    solver = cuda_solver.make_substep_solver(spec).kernel_solve
+    new, cs, as_ = st, [], []
+    for t in range(ms.shape[0]):
+      new = physics.step_world_motor(spec, new, ms[t], substep_solver=solver)
+      cs.append(new.c)
+      as_.append(new.a)
+    torch.cuda.synchronize()
+    _mega_check(f'{name} B={st.c.shape[0]} T={ms.shape[0]} substep kernel',
+                st.c.shape[0], bounds, new,
+                {'c': torch.stack(cs), 'a': torch.stack(as_)}, ref, ref_traj,
+                rollout_worst, failures, sleep_min, tag='solver')
+  if failures:
+    raise RuntimeError('solver kernel outside the test_pallas / test_mega '
+                       'bounds:\n' + '\n'.join(failures))
+  return dict(max_abs_err=worst, rollout_worst=rollout_worst)
+
+
+def solver_flops(spec, bundle, with_position):
+  """Float operations of one solver launch, counted from
+  csrc/physics_stages.cuh's velocity_sweep and position_solve (the velocity
+  and NGS terms of mega_flops_per_substep): per world, C (45 vi + 35 pi) +
+  jn (87 vi + 55 pi), plus 6 n for the position integration, with C the
+  contact points that have a velocity point in this bundle (this run's
+  data) and pi = 1 (the fewest iterations Box2D's exit allows); without
+  the position solve, C 45 vi + jn 87 vi."""
+  B = bundle.v.shape[0]
+  C = float(((bundle.w_nmass > 0).sum() + (bundle.p_nmass > 0).sum()) / B)
+  vi, pi = spec.vel_iters, (1 if with_position else 0)
+  per_world = C * (45 * vi + 35 * pi) + spec.jn * (87 * vi + 55 * pi)
+  if with_position:
+    per_world += 6 * spec.n
+  return per_world * B
+
+
+def solver_bound(spec, tensors, bundle, with_position):
+  """Least time of one solver launch: (bound ms, 'bytes' | 'operations',
+  flops). Bytes: each input (the bundle, and the position solve's inputs)
+  read once and each output written once; operations: solver_flops."""
+  nbytes = sum(t.numel() * t.element_size() for t in tensors)
+  flops = solver_flops(spec, bundle, with_position)
+  t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / FP32_FLOPS * 1e3
+  by = (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+  return (*by, flops)
+
+
+def solver_path_phase(dev, smi):
+  """bench.py's BENCH_SOLVER=sub line at full width: Urchin, 8/4 iterations,
+  4096 worlds, 100 steps of step_world_batch with the substep kernel, each
+  followed by Env.observe, whose three parts are summed and consumed. Every
+  launch count is set to 0 just before and read just after; the final state
+  is held to a plain 100-step rollout from the same states and actions with
+  test_mega's Urchin bounds. Then the busy share of 5 profiled steps, the
+  per-layer times of one step with the kernel and with the plain solves,
+  and both kernels' times beside their bounds."""
+  env = _env(MAIN_ENV, dev)
+  spec = env.spec
+  T, B = int(env.G.ep_len), SOLVER_BATCH
+  gen = torch.Generator(device=dev).manual_seed(6)
+  st0 = Env.reset(env, gen, B)
+  acts = torch.rand((T, B, env.act_size), generator=gen, device=dev) * 2 - 1
+  solver = cuda_solver.make_substep_solver(spec)
+
+  def run_path(st, n, hook=True):
+    total = torch.zeros((), device=dev)
+    for t in range(n):
+      st = physics.step_world_batch(spec, st, acts[t],
+                                    substep_solver=solver if hook else None)
+      obs = Env.observe(env, st)
+      total = (total + obs['full_state'].sum() + obs['proprio'].sum()
+               + obs['lcd'].sum())
+    return st, total
+
+  run_path(st0, 1)                  # warm the allocator and the build
+  _zero_launches()
+  t0 = time.perf_counter()
+  final, total = run_path(st0, T)
+  total = float(total)
+  wall = time.perf_counter() - t0
+  launches = _launches()
+  log(f'[solver-path] {MAIN_ENV} {B} worlds x {T} steps with the substep '
+      f'kernel + observe: {wall:.2f} s, {B * T / wall:.1f} env-steps/s on '
+      f'{smi}; launches {launches}; obs sum {total:.6e}')
+  if launches != _expect(substep_solver=T * spec.substeps, lcd_raster=T):
+    raise RuntimeError(f'solver path launches {launches}')
+  if not math.isfinite(total):
+    raise RuntimeError('solver path: non-finite observations')
+
+  # the final state against the plain path from the same states and actions
+  t0 = time.perf_counter()
+  ref, _ = run_path(st0, T, hook=False)
+  torch.cuda.synchronize()
+  plain_wall = time.perf_counter() - t0
+  failures, worst = [], {}
+  msg = _per_world_check(f'{MAIN_ENV} B={B} T={T}', B,
+                         MEGA_BOUNDS[MAIN_ENV][:3], final, ref, worst,
+                         failures)
+  log(f'[solver-path] final state vs the plain path ({plain_wall:.2f} s): '
+      f'median/tail per field: {", ".join(msg)}; worst world '
+      f'{max(worst.values()):.2e}')
+  if failures:
+    raise RuntimeError('solver path outside test_mega\'s Urchin bounds:\n'
+                       + '\n'.join(failures))
+
+  # busy share of 5 steps under the profiler
+  acts_p = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+  torch.cuda.synchronize()
+  with torch.profiler.profile(activities=acts_p) as prof:
+    t0 = time.perf_counter()
+    run_path(final, 5)
+    torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t0
+  dev_us = sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False))
+  busy = dev_us / 1e6 / prof_wall
+  log(f'[solver-path] busy share of 5 steps: {busy:.4f} (device '
+      f'{dev_us / 1e3:.1f} ms of {prof_wall * 1e3:.1f} ms, profiled)')
+
+  # per-layer times of one step at 4096 worlds (one substep's stages; a
+  # step runs `substeps` of them, then observe)
+  K = physics.consts(spec, dev)
+  st = final
+  ms = physics.motor_speeds(spec, acts[0])
+  mc = (ms != st.prev_motor) & K.j_valid
+  bundle, aux = physics._presolve(spec, K, st, ms)
+  b2, c, a = solver.kernel_solve(st, bundle, aux)
+  vel = cuda_solver.make_batched_solver(spec)
+  timed = {
+      'presolve': (5, lambda: physics._presolve(spec, K, st, ms)),
+      'plain_solves': (1, lambda: solver.plain_solve(st, bundle, aux)),
+      'plain_velocity_solve': (1, lambda: vel.plain_solve(bundle)),
+      'finalize': (5, lambda: physics._finalize(spec, K, st, b2, aux, mc, c,
+                                                a)),
+      'observe': (20, lambda: Env.observe(env, st)),
+      'step_with_kernel': (3, lambda: run_path(st, 1)),
+      'step_plain': (1, lambda: run_path(st, 1, hook=False)),
+  }
+  layers = {}
+  for name, (n, fn) in timed.items():
+    d, events = profiled(fn, n)
+    layers[name] = dict(wall_ms=wall_ms(fn, n), device_ms=d,
+                        device_events=events)
+  layers['substep_kernel'] = dict(
+      device_ms=events_ms(lambda: solver.kernel_solve(st, bundle, aux), 20),
+      wall_ms=wall_ms(lambda: solver.kernel_solve(st, bundle, aux), 20))
+  layers['velocity_kernel'] = dict(
+      device_ms=events_ms(lambda: vel.kernel_solve(bundle), 20),
+      wall_ms=wall_ms(lambda: vel.kernel_solve(bundle), 20))
+  for name, t in layers.items():
+    events = (f', {t["device_events"]:.0f} device events a call'
+              if 'device_events' in t else '')
+    log(f'[solver-path] layer {name}: {t["wall_ms"]:.3f} ms with dispatch, '
+        f'device {_fmt(t["device_ms"])}{events} ({B} worlds, {smi})')
+
+  # both kernels beside their bounds and plain versions
+  pos = [st.c, st.a, st.j_ref, aux.lc, aux.wallm.lps, aux.wallm.rad_sub,
+         aux.wallm.touch, aux.pairm.lps, aux.pairm.ln, aux.pairm.lpp,
+         aux.pairm.rad_sub, aux.pairm.mtype, aux.pairm.touch]
+  carry = [b2.v, b2.w, b2.j_imp, b2.j_mot, b2.j_lim, b2.wc, b2.pc]
+  kernels = {}
+  for kind, with_pos, plain in (('substep', True, 'plain_solves'),
+                                ('velocity', False, 'plain_velocity_solve')):
+    tensors = list(bundle) + carry + (pos + [c, a] if with_pos else [])
+    bound, by, flops = solver_bound(spec, tensors, bundle, with_pos)
+    k = layers[f'{kind}_kernel']
+    p = layers[plain]
+    kernels[kind] = dict(ms=k['device_ms'], plain_ms=p['device_ms']
+                         or p['wall_ms'], plain_wall_ms=p['wall_ms'],
+                         bound_ms=bound, bound_by=by, flops=flops)
+    log(f'[solver-path] {kind} kernel {k["device_ms"]:.4f} ms device '
+        f'(events); plain {_fmt(p["device_ms"])} device (profiler), '
+        f'{p["wall_ms"]:.2f} ms a call; bound {bound:.6f} ms ({by}, '
+        f'{flops:.3e} flops, {B} worlds)')
+  return dict(launches=launches, wall_s=wall, env_steps_per_s=B * T / wall,
+              plain_wall_s=plain_wall, busy_share=busy, layers=layers,
+              kernels=kernels, worst=worst)
+
+
+def vec_env_phase(dev, smi):
+  """The per-step batched env on the card: VecEnv on Luxo in body mode with
+  8 envs for ep_len + 1 steps of random actions (autoreset runs), then cube
+  mode on LuxoCube for a few steps. Observations come back as numpy; the
+  lcd raster launches at least once a step and no other kernel runs;
+  timeouts fall on ep_len."""
+  G = AttrDict(goal_thresh=0.05, rew_scale=1.0)
+  out = {}
+  rng = np.random.default_rng(0)
+  for name, mode in ((VEC_ENV, 'body'), (VEC_CUBE_ENV, 'cube')):
+    env = _env(name, dev)
+    ep_len = int(env.G.ep_len)
+    steps = ep_len + 1 if mode == 'body' else VEC_CUBE_STEPS
+    venv = VecEnv(env, VEC_ENVS, G, goal_mode=mode, seed=0)
+    venv.reset()
+    _zero_launches()
+    t0 = time.perf_counter()
+    timeouts, successes = [], []
+    for t in range(steps):
+      act = rng.uniform(-1, 1, (VEC_ENVS, env.act_size)).astype(np.float32)
+      obs, rew, done, infos = venv.step(act)
+      timeouts.append([i['timeout'] for i in infos])
+      successes.append([i['success'] for i in infos])
+      for k, v in obs.items():
+        if not isinstance(v, np.ndarray) or v.shape[0] != VEC_ENVS:
+          raise RuntimeError(f'VecEnv {mode} obs {k}: {type(v)}')
+        if v.dtype != bool and not np.isfinite(v).all():
+          raise RuntimeError(f'VecEnv {mode} obs {k} is not finite')
+      if not (isinstance(rew, np.ndarray) and np.isfinite(rew).all()):
+        raise RuntimeError(f'VecEnv {mode}: rewards {rew}')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    timeouts, successes = np.asarray(timeouts), np.asarray(successes)
+    want_keys = {'lcd', 'full_state', 'proprio', 'goal:lcd', 'goal:proprio'}
+    if mode == 'cube':
+      want_keys |= {'goal:full_state', 'goal:object'}
+    log(f'[vec-env] {name} {mode} mode, {VEC_ENVS} envs x {steps} steps: '
+        f'{wall * 1e3 / steps:.2f} ms a step on {smi}; launches {launches}; '
+        f'timeouts at steps {sorted({int(t) + 1 for t in np.nonzero(timeouts)[0]})}, '
+        f'{int(successes.sum())} successes')
+    if set(obs) != want_keys:
+      raise RuntimeError(f'VecEnv {mode} obs keys {sorted(obs)}')
+    if (launches['lcd_raster'] < steps or launches != _expect(
+        lcd_raster=launches['lcd_raster'])):
+      raise RuntimeError(f'VecEnv {mode} launches {launches}')
+    # a world times out at step ep_len unless a success reset it before
+    early = successes[:ep_len - 1].any(0)
+    if mode == 'body' and not (
+        (timeouts[ep_len - 1] | early).all()
+        and not np.delete(timeouts, ep_len - 1, 0).any()):
+      raise RuntimeError(f'VecEnv timeouts do not fall on ep_len {ep_len}')
+    out[mode] = dict(ms_a_step=wall * 1e3 / steps, steps=steps,
+                     launches=launches, successes=int(successes.sum()))
+  return out
 
 
 def main():
@@ -771,12 +1155,16 @@ def main():
 
   kern = run('kernel', kernel_phase, dev)
   traj = run('traj', traj_phase, dev)
-  meg = run('mega', mega_phase, dev)
+  meg, mega_refs = run('mega', mega_phase, dev)
   ref = run('reference', reference_phase, dev)
+  sol = run('solver', solver_phase, dev, mega_refs)
   main_run = run('main', main_path_phase, dev, smi)
   step_run = run('per-step', per_step_phase, dev, smi)
+  sol_path = run('solver-path', solver_path_phase, dev, smi)
+  vec = run('vec-env', vec_env_phase, dev, smi)
   lt, tt, mt = kern['times'][TRIPWIRE_FRAMES], traj['times'], meg['times']
   launches = main_run['launches']
+  sk = sol_path['kernels']
   kernels = [{
       'name': 'mega_rollout', 'route': 'cuda',
       'source': 'boxlcd_tpu_torch/csrc/mega_rollout.cu',
@@ -800,13 +1188,23 @@ def main():
       'max_abs_err': kern['max_abs_err'],
       'ms': lt['ms'], 'plain_ms': lt['plain_ms'], 'bound_ms': lt['bound_ms'],
       'bound_by': lt['bound_by'], 'library_ms': None,
-  }]
+  }] + [{
+      'name': f'{kind}_solver', 'route': 'cuda',
+      'source': 'boxlcd_tpu_torch/csrc/batched_solver.cu',
+      'replaces': f'boxlcd_tpu/engine/pallas_solver.py:{line}',
+      'launches': sol_path['launches'][f'{kind}_solver'],
+      'max_abs_err': sol['max_abs_err'][kind],
+      'ms': sk[kind]['ms'], 'plain_ms': sk[kind]['plain_ms'],
+      'bound_ms': sk[kind]['bound_ms'], 'bound_by': sk[kind]['bound_by'],
+      'library_ms': None,
+  } for kind, line in (('velocity', 528), ('substep', 603))]
   if args.out:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
-        reference=ref, main=main_run, per_step=step_run, kernels=kernels,
+        reference=ref, solver=sol, main=main_run, per_step=step_run,
+        solver_path=sol_path, vec_env=vec, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)

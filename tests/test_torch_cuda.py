@@ -1,6 +1,7 @@
 """The CUDA kernels on the card vs their plain torch versions: the per-frame
-LCD raster, the trajectory raster (bit for bit) and the rollout megakernel
-(within tests/test_mega.py's bounds).
+LCD raster, the trajectory raster (bit for bit), the rollout megakernel
+(within tests/test_mega.py's bounds) and the whole-batch solver kernel
+(within tests/test_pallas.py's bounds); and the VecEnv on the card.
 
 Marked `cuda`: these tests need an NVIDIA GPU and nvcc, and skip inside the
 `cuda_device` fixture where there is none. Run them on the card with
@@ -8,13 +9,16 @@ Marked `cuda`: these tests need an NVIDIA GPU and nvcc, and skip inside the
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 import boxlcd_tpu_torch
-from boxlcd_tpu_torch.engine import mega, physics
+from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
+from boxlcd_tpu_torch.research.wrappers import VecEnv
+from boxlcd_tpu_torch.utils import AttrDict
 
 pytestmark = pytest.mark.cuda
 ITERS = {'vel_iters': 8, 'pos_iters': 4}
@@ -161,3 +165,77 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                        cosa, sina, st.is_circle)
   with pytest.raises(ValueError):       # mixed devices
     render.kernel_rows(poses, cosa, sina, st.is_circle.cpu())
+
+
+# tests/test_pallas.py's bounds: the velocity hook within 1e-4 on v, w, c,
+# a; the substep hook within 2e-3 on its fields (NGS exit flags are hard
+# thresholds: a one-ulp flip costs one position iteration, ~5e-4 on c)
+SOLVER_FIELDS = {
+    'velocity': (1e-4, ['v', 'w', 'c', 'a']),
+    'substep': (2e-3, ['v', 'w', 'c', 'a', 'wc_imp', 'pc_imp', 'j_imp',
+                       'j_mot', 'j_lim', 'sleep_time']),
+}
+
+
+@pytest.mark.parametrize('env_name', ['UrchinBall', 'LuxoCube'])
+@pytest.mark.parametrize('hook', ['velocity', 'substep'])
+def test_solver_kernel_within_bounds_of_plain(cuda_device, env_name, hook):
+  env = boxlcd_tpu_torch.env_map[env_name](ITERS, device=cuda_device)
+  spec = env.spec
+  gen = torch.Generator(device=cuda_device).manual_seed(0)
+  st = Env.reset(env, gen, 1024)
+  act = torch.rand((1024, env.act_size), generator=gen,
+                   device=cuda_device) * 2 - 1
+  for _ in range(3):
+    st = physics.step_world_batch(spec, st, act)
+  solver = (cuda_solver.make_batched_solver(spec) if hook == 'velocity'
+            else cuda_solver.make_substep_solver(spec))
+  before = cuda_solver.LAUNCHES[hook]
+  got = physics.step_world_batch(spec, st, act, **{f'{hook}_solver': solver})
+  torch.cuda.synchronize()
+  assert cuda_solver.LAUNCHES[hook] == before + spec.substeps
+  want = physics.step_world_batch(spec, st, act)
+  bound, fields = SOLVER_FIELDS[hook]
+  for f in fields:
+    err = float((getattr(got, f) - getattr(want, f)).abs().max())
+    assert err < bound, (f, err)
+
+
+def test_solver_kernel_with_dropped_second_points(cuda_device):
+  """Contacts whose second velocity point Box2D drops (zero masses and
+  impulse, no block solve, both points still touching): the kernel runs
+  every slot and must give the plain solves' result."""
+  from chip_smoke import drop_second_points
+  env = boxlcd_tpu_torch.env_map['LuxoCube'](ITERS, device=cuda_device)
+  spec = env.spec
+  gen = torch.Generator(device=cuda_device).manual_seed(1)
+  st = Env.reset(env, gen, 1024)
+  act = torch.rand((1024, env.act_size), generator=gen,
+                   device=cuda_device) * 2 - 1
+  for _ in range(3):
+    st = physics.step_world_batch(spec, st, act)
+  K = physics.consts(spec, cuda_device)
+  b, aux = physics._presolve(spec, K, st, physics.motor_speeds(spec, act))
+  assert int((b.w_nmass > 0).all(-1).sum()) > 0
+  b = drop_second_points(b)
+  solver = cuda_solver.make_substep_solver(spec)
+  (got, c, a), (want, c0, a0) = (solver.kernel_solve(st, b, aux),
+                                 solver.plain_solve(st, b, aux))
+  torch.cuda.synchronize()
+  for g, w in zip((got.v, got.w, got.wc, got.pc, c, a),
+                  (want.v, want.w, want.wc, want.pc, c0, a0)):
+    assert float((g - w).abs().max()) < 2e-3
+
+
+def test_vec_env_on_the_card_launches_the_raster(cuda_device):
+  env = boxlcd_tpu_torch.env_map['Luxo'](ITERS, device=cuda_device)
+  venv = VecEnv(env, 8, AttrDict(goal_thresh=0.05, rew_scale=1.0),
+                goal_mode='body')
+  obs = venv.reset()
+  before = cuda_raster.LAUNCHES
+  obs, rew, done, infos = venv.step(np.zeros((8, env.act_size), np.float32))
+  torch.cuda.synchronize()
+  assert cuda_raster.LAUNCHES > before
+  assert isinstance(obs['lcd'], np.ndarray) and obs['lcd'].shape == (
+      8, env.lcd_h, env.lcd_w)
+  assert rew.shape == (8,) and len(infos) == 8
