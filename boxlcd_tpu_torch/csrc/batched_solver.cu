@@ -1,6 +1,7 @@
 // Whole-batch constraint solver for Hopper (sm_90a): the solver stages of one
 // physics substep for every world, in one launch, between engine/physics.py's
-// plain presolve and finalize. One thread owns one world.
+// plain presolve and finalize. A group of G lanes owns one world (lane i owns
+// body i), as in mega_rollout.cu.
 //
 //   with_position = false: `vel_iters` Gauss-Seidel velocity sweeps (joint
 //     motor, the coupled limit + point block, wall and pair friction, the
@@ -12,23 +13,28 @@
 // (`_make_kernel(spec, with_position)`, launched through pl.pallas_call by
 // `make_batched_solver` and `make_substep_solver`). Those laid every bundle
 // field out as (*S, B/128, 128) tiles of 1024 worlds and converted bool and
-// int fields to f32 for Mosaic; here each thread reads its world's rows of
-// the (B, ...) tensors as physics.py builds them, in their own dtypes, and
-// writes fresh output tensors (the wrapper allocates them), so the bundle
-// the caller holds stays as it was. The stages are physics_stages.cuh's
-// velocity_solve and position_solve, shared with mega_rollout.cu; topology
-// and constants come from the same SpecF / SpecI tables (engine/mega.py),
-// copied into shared memory per block, with the bundle's friction mixes in
-// place of the table's. Every contact slot runs in the sweeps, as in the
-// plain version: a slot without a velocity point carries zero masses and a
-// zero impulse, so its updates are exact zeros.
+// int fields to f32 for Mosaic; here the kernel reads the (B, ...) tensors as
+// physics.py builds them, in their own dtypes, and writes fresh output
+// tensors (the wrapper allocates them), so the bundle the caller holds stays
+// as it was. The stages are physics_stages.cuh's velocity_solve and
+// position_solve, shared with mega_rollout.cu; topology and constants come
+// from the same SpecF / SpecI tables (engine/mega.py), copied into shared
+// memory per block, with the bundle's friction mixes in place of the
+// table's. Every contact slot runs in the sweeps, as in the plain version: a
+// slot without a velocity point carries zero masses and a zero impulse, so
+// its updates are exact zeros.
 //
 // What bounds it on the H100: the bundle is read once and the carry written
 // once, ~1 KB a world against ~10^4 float operations a substep, so its
 // roofline bound is bytes at large batch. What bounds it in fact is the
-// serial Gauss-Seidel chain in one thread, the Work scratch in local memory,
-// and occupancy (4096 worlds are 32 blocks of 128 threads on 132 SMs).
-// chip_smoke.py prints its time beside the bound.
+// latency of the Gauss-Seidel chain and of the loads that start it. Lane i
+// reads its own body's rows of the (B, N, ...) fields, so a warp's loads of
+// one field cover one contiguous run of its worlds' rows; pair and joint
+// rows are read by lanes in slot order. The body-parallel stages run on G
+// lanes at once, the wall contacts stay in registers, and
+// engine/mega.py's launch_geometry spreads the worlds over every SM (Urchin's
+// 4096 worlds are 256 blocks of 64 threads). chip_smoke.py prints its time
+// beside the bound, its registers and occupancy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,22 +82,27 @@ static_assert(sizeof(Ptrs) == NPTRS * sizeof(void*), "Ptrs holds 64 pointers");
 
 constexpr int NF = sizeof(SpecF) / sizeof(float);
 constexpr int NI = sizeof(SpecI) / sizeof(int);
+constexpr int MAX_THREADS = 128;
 
-__device__ void load_bundle(const Ptrs& P, const SpecI& I, long wd, Work& X,
-                            float* ms) {
-  const int n = I.n, nw = I.nw, np = I.np, nj = I.nj;
-  for (int i = 0; i < n; ++i) {
+template <unsigned G>
+__device__ void load_bundle(const Group<G>& g, const Ptrs& P, const SpecI& I,
+                            long wd, const World<G>& W, WallC (&wc)[MW]) {
+  const int i = g.thread_rank(), n = I.n, nw = I.nw, np = I.np, nj = I.nj;
+  if (i < n) {
     const long b = wd * n + i;
-    X.vx[i] = P.v[2 * b];
-    X.vy[i] = P.v[2 * b + 1];
-    X.w[i] = P.w[b];
-    X.inv_m[i] = P.inv_m[b];
-    X.inv_i[i] = P.inv_i[b];
-    for (int wi = 0; wi < nw; ++wi) {
-      WallC& C = X.wc[i][wi];
+    W.vx(i) = P.v[2 * b];
+    W.vy(i) = P.v[2 * b + 1];
+    W.w(i) = P.w[b];
+    W.im(i) = P.inv_m[b];
+    W.ii(i) = P.inv_i[b];
+#pragma unroll
+    for (int wi = 0; wi < MW; ++wi) {
+      if (wi >= nw) break;
+      WallC& C = wc[wi];
       const long s2 = b * nw + wi;
       C.k12 = P.w_k12[s2];
       C.block = P.w_block[s2] != 0;
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
         const long s = s2 * 2 + k;
         C.vtouch[k] = true;
@@ -106,8 +117,8 @@ __device__ void load_bundle(const Ptrs& P, const SpecI& I, long wd, Work& X,
       }
     }
   }
-  for (int p = 0; p < np; ++p) {
-    PairC& C = X.pc[p];
+  for (int p = i; p < np; p += G) {
+    PairC& C = W.pc[p];
     const long s1 = wd * np + p;
     C.nx = P.p_n[2 * s1];
     C.ny = P.p_n[2 * s1 + 1];
@@ -119,7 +130,7 @@ __device__ void load_bundle(const Ptrs& P, const SpecI& I, long wd, Work& X,
     C.iiB = P.p_iiB[s1];
     for (int k = 0; k < 2; ++k) {
       const long s = s1 * 2 + k;
-      C.vtouch[k] = true;
+      C.vtouch[k] = 1;
       C.rax[k] = P.p_rA[2 * s];
       C.ray[k] = P.p_rA[2 * s + 1];
       C.rbx[k] = P.p_rB[2 * s];
@@ -132,8 +143,8 @@ __device__ void load_bundle(const Ptrs& P, const SpecI& I, long wd, Work& X,
       C.imp[k][1] = P.pc[2 * s + 1];
     }
   }
-  for (int j = 0; j < nj; ++j) {
-    JointC& J = X.jc[j];
+  for (int j = i; j < nj; j += G) {
+    JointC& J = W.jc[j];
     const long s = wd * nj + j;
     J.rax = P.j_rA[2 * s];
     J.ray = P.j_rA[2 * s + 1];
@@ -145,30 +156,35 @@ __device__ void load_bundle(const Ptrs& P, const SpecI& I, long wd, Work& X,
     J.iA = P.j_iA[s];
     J.iB = P.j_iB[s];
     J.state = P.j_state[s];
-    X.j_imp[j][0] = P.j_imp[2 * s];
-    X.j_imp[j][1] = P.j_imp[2 * s + 1];
-    X.j_mot[j] = P.j_mot[s];
-    X.j_lim[j] = P.j_lim[s];
-    ms[j] = P.motor_speed[s];
+    J.imp[0] = P.j_imp[2 * s];
+    J.imp[1] = P.j_imp[2 * s + 1];
+    J.mot = P.j_mot[s];
+    J.lim = P.j_lim[s];
+    J.ms = P.motor_speed[s];
   }
 }
 
 // The position solve's inputs: poses, reference angles, local centers and
 // the manifold fields it re-evaluates.
-__device__ void load_position(const Ptrs& P, const SpecI& I, long wd,
-                              State& S, Work& X) {
-  const int n = I.n, nw = I.nw, np = I.np, nj = I.nj;
-  for (int i = 0; i < n; ++i) {
+template <unsigned G>
+__device__ void load_position(const Group<G>& g, const Ptrs& P,
+                              const SpecI& I, long wd, const World<G>& W,
+                              WallC (&wc)[MW]) {
+  const int i = g.thread_rank(), n = I.n, nw = I.nw, np = I.np, nj = I.nj;
+  if (i < n) {
     const long b = wd * n + i;
-    S.cx[i] = P.c[2 * b];
-    S.cy[i] = P.c[2 * b + 1];
-    S.a[i] = P.a[b];
-    X.lcx[i] = P.lc[2 * b];
-    X.lcy[i] = P.lc[2 * b + 1];
-    for (int wi = 0; wi < nw; ++wi) {
-      WallC& C = X.wc[i][wi];
+    W.sx(i) = P.c[2 * b];
+    W.sy(i) = P.c[2 * b + 1];
+    W.sa(i) = P.a[b];
+    W.lcx(i) = P.lc[2 * b];
+    W.lcy(i) = P.lc[2 * b + 1];
+#pragma unroll
+    for (int wi = 0; wi < MW; ++wi) {
+      if (wi >= nw) break;
+      WallC& C = wc[wi];
       const long s2 = b * nw + wi;
       C.rad_sub = P.w_rad[s2];
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
         const long s = s2 * 2 + k;
         C.touch[k] = P.w_touch[s] != 0;
@@ -177,8 +193,8 @@ __device__ void load_position(const Ptrs& P, const SpecI& I, long wd,
       }
     }
   }
-  for (int p = 0; p < np; ++p) {
-    PairC& C = X.pc[p];
+  for (int p = i; p < np; p += G) {
+    PairC& C = W.pc[p];
     const long s1 = wd * np + p;
     C.mtype = P.p_mtype[s1];
     C.rad_sub = P.p_rad[s1];
@@ -193,43 +209,52 @@ __device__ void load_position(const Ptrs& P, const SpecI& I, long wd,
       C.lpsy[k] = P.p_lps[2 * s + 1];
     }
   }
-  for (int j = 0; j < nj; ++j) S.j_ref[j] = P.j_ref[wd * nj + j];
+  for (int j = i; j < nj; j += G) W.jc[j].ref = P.j_ref[wd * nj + j];
 }
 
-__device__ void store_carry(const Ptrs& P, const SpecI& I, long wd,
-                            const Work& X) {
-  const int n = I.n, nw = I.nw, np = I.np, nj = I.nj;
-  for (int i = 0; i < n; ++i) {
+template <unsigned G>
+__device__ void store_carry(const Group<G>& g, const Ptrs& P, const SpecI& I,
+                            long wd, const World<G>& W,
+                            const WallC (&wc)[MW]) {
+  const int i = g.thread_rank(), n = I.n, nw = I.nw, np = I.np, nj = I.nj;
+  if (i < n) {
     const long b = wd * n + i;
-    P.v_out[2 * b] = X.vx[i];
-    P.v_out[2 * b + 1] = X.vy[i];
-    P.w_out[b] = X.w[i];
-    for (int wi = 0; wi < nw; ++wi)
+    P.v_out[2 * b] = W.vx(i);
+    P.v_out[2 * b + 1] = W.vy(i);
+    P.w_out[b] = W.w(i);
+#pragma unroll
+    for (int wi = 0; wi < MW; ++wi) {
+      if (wi >= nw) break;
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
         const long s = (b * nw + wi) * 2 + k;
-        P.wc_out[2 * s] = X.wc[i][wi].imp[k][0];
-        P.wc_out[2 * s + 1] = X.wc[i][wi].imp[k][1];
+        P.wc_out[2 * s] = wc[wi].imp[k][0];
+        P.wc_out[2 * s + 1] = wc[wi].imp[k][1];
       }
+    }
   }
-  for (int p = 0; p < np; ++p)
+  for (int p = i; p < np; p += G)
     for (int k = 0; k < 2; ++k) {
       const long s = (wd * np + p) * 2 + k;
-      P.pc_out[2 * s] = X.pc[p].imp[k][0];
-      P.pc_out[2 * s + 1] = X.pc[p].imp[k][1];
+      P.pc_out[2 * s] = W.pc[p].imp[k][0];
+      P.pc_out[2 * s + 1] = W.pc[p].imp[k][1];
     }
-  for (int j = 0; j < nj; ++j) {
+  for (int j = i; j < nj; j += G) {
+    const JointC& J = W.jc[j];
     const long s = wd * nj + j;
-    P.j_imp_out[2 * s] = X.j_imp[j][0];
-    P.j_imp_out[2 * s + 1] = X.j_imp[j][1];
-    P.j_mot_out[s] = X.j_mot[j];
-    P.j_lim_out[s] = X.j_lim[j];
+    P.j_imp_out[2 * s] = J.imp[0];
+    P.j_imp_out[2 * s + 1] = J.imp[1];
+    P.j_mot_out[s] = J.mot;
+    P.j_lim_out[s] = J.lim;
   }
 }
 
-template <bool with_position>
-__global__ void __launch_bounds__(128) batched_solver_kernel(Ptrs P, long B) {
+template <unsigned G, bool with_position>
+__global__ void __launch_bounds__(MAX_THREADS)
+batched_solver_kernel(Ptrs P, long B, int wpb) {
   __shared__ SpecF F;
   __shared__ SpecI I;
+  extern __shared__ float4 smem[];
   for (int k = threadIdx.x; k < NF; k += blockDim.x)
     reinterpret_cast<float*>(&F)[k] = P.ftab[k];
   for (int k = threadIdx.x; k < NI; k += blockDim.x)
@@ -240,36 +265,96 @@ __global__ void __launch_bounds__(128) batched_solver_kernel(Ptrs P, long B) {
   for (int k = threadIdx.x; k < I.n; k += blockDim.x) F.w_mu[k] = P.w_mu[k];
   for (int k = threadIdx.x; k < I.np; k += blockDim.x) F.p_mu[k] = P.p_mu[k];
   __syncthreads();
-  const long wd = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (wd >= B) return;
-  Work X;
-  float ms[MJ];
-  load_bundle(P, I, wd, X, ms);
-  velocity_solve(F, I, ms, X);
+  const Group<G> g = cg::tiled_partition<G>(cg::this_thread_block());
+  const int slot = threadIdx.x / G;
+  const long wd = (long)blockIdx.x * wpb + slot;
+  if (wd >= B) return;              // the whole group: no sync spans groups
+  const World<G> W = world_view<G>(reinterpret_cast<float*>(smem), slot,
+                                   I.np, I.nj);
+  WallC wc[MW];
+  load_bundle(g, P, I, wd, W, wc);
+  if constexpr (with_position) load_position(g, P, I, wd, W, wc);
+  g.sync();
+  velocity_solve(g, F, I, W, wc);
   if constexpr (with_position) {
-    State S;
-    load_position(P, I, wd, S, X);
-    position_solve(F, I, S, X);
-    for (int i = 0; i < I.n; ++i) {
+    position_solve(g, F, I, W, wc);
+    const int i = g.thread_rank();
+    if (i < I.n) {
       const long b = wd * I.n + i;
-      P.c_out[2 * b] = X.cx[i];
-      P.c_out[2 * b + 1] = X.cy[i];
-      P.a_out[b] = X.a[i];
+      P.c_out[2 * b] = W.cx(i);
+      P.c_out[2 * b + 1] = W.cy(i);
+      P.a_out[b] = W.a(i);
     }
   }
-  store_carry(P, I, wd, X);
+  store_carry(g, P, I, wd, W, wc);
+}
+
+// Let the kernel take `shared` bytes of dynamic shared memory: beyond 48 KB
+// less its static shared memory (the tables) a launch is refused unless the
+// attribute was raised first. Raised once per instantiation, to the largest
+// size asked so far.
+template <unsigned G, bool with_position>
+cudaError_t allow_shared(int shared) {
+  static int allowed = 0;
+  if (shared <= allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      batched_solver_kernel<G, with_position>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (e == cudaSuccess) allowed = shared;
+  return e;
+}
+
+template <unsigned G, bool with_position>
+int launch_g(const Ptrs& P, long B, int wpb, int shared, cudaStream_t stream) {
+  auto kern = batched_solver_kernel<G, with_position>;
+  const cudaError_t e = allow_shared<G, with_position>(shared);
+  if (e != cudaSuccess) return (int)e;
+  const long blocks = (B + wpb - 1) / wpb;
+  kern<<<(unsigned)blocks, G * wpb, shared, stream>>>(P, B, wpb);
+  return (int)cudaGetLastError();
+}
+
+template <unsigned G, bool with_position>
+int occupancy_g(int wpb, int shared) {
+  int blocks = 0;
+  cudaError_t e = allow_shared<G, with_position>(shared);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, batched_solver_kernel<G, with_position>, G * wpb, shared);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
+bool geometry_ok(int G, int wpb, int np, int nj, int shared) {
+  if (G != 4 && G != 8 && G != 16 && G != 32) return false;
+  if (wpb <= 0 || G * wpb > MAX_THREADS) return false;
+  return shared == wpb * world_words(G, np, nj) * 4;
 }
 
 template <bool with_position>
-int launch(void* const* ptrs, long B, void* stream) {
-  if (B <= 0) return (int)cudaErrorInvalidValue;
+int launch(void* const* ptrs, long B, int G, int wpb, int np, int nj,
+           int shared, void* stream) {
+  if (B <= 0 || !geometry_ok(G, wpb, np, nj, shared))
+    return (int)cudaErrorInvalidValue;
   Ptrs P;
   memcpy(&P, ptrs, sizeof(Ptrs));
-  const int threads = 128;
-  const long blocks = (B + threads - 1) / threads;
-  batched_solver_kernel<with_position>
-      <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(P, B);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (G) {
+    case 4: return launch_g<4, with_position>(P, B, wpb, shared, s);
+    case 8: return launch_g<8, with_position>(P, B, wpb, shared, s);
+    case 16: return launch_g<16, with_position>(P, B, wpb, shared, s);
+    default: return launch_g<32, with_position>(P, B, wpb, shared, s);
+  }
+}
+
+template <bool with_position>
+int occupancy(int G, int wpb, int shared) {
+  switch (G) {
+    case 4: return occupancy_g<4, with_position>(wpb, shared);
+    case 8: return occupancy_g<8, with_position>(wpb, shared);
+    case 16: return occupancy_g<16, with_position>(wpb, shared);
+    case 32: return occupancy_g<32, with_position>(wpb, shared);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -282,13 +367,24 @@ extern "C" void batched_solver_sizes(int* nf, int* ni, int* nptrs) {
   *nptrs = NPTRS;
 }
 
-// ptrs: the 64 device pointers of Ptrs, in its order.
-extern "C" int batched_velocity_launch(void* const* ptrs, long B,
+// ptrs: the 64 device pointers of Ptrs, in its order; the geometry from
+// engine/mega.py's launch_geometry, as for mega_rollout_launch.
+extern "C" int batched_velocity_launch(void* const* ptrs, long B, int G,
+                                       int wpb, int np, int nj, int shared,
                                        void* stream) {
-  return launch<false>(ptrs, B, stream);
+  return launch<false>(ptrs, B, G, wpb, np, nj, shared, stream);
 }
 
-extern "C" int batched_substep_launch(void* const* ptrs, long B,
+extern "C" int batched_substep_launch(void* const* ptrs, long B, int G,
+                                      int wpb, int np, int nj, int shared,
                                       void* stream) {
-  return launch<true>(ptrs, B, stream);
+  return launch<true>(ptrs, B, G, wpb, np, nj, shared, stream);
+}
+
+// Resident blocks per SM of either kernel for this geometry, or minus a
+// cudaError.
+extern "C" int batched_solver_occupancy(int with_position, int G, int wpb,
+                                        int shared) {
+  return with_position ? occupancy<true>(G, wpb, shared)
+                       : occupancy<false>(G, wpb, shared);
 }

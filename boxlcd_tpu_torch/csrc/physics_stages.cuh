@@ -1,5 +1,6 @@
-// One world's rigid-body substep as device functions, stage by stage after
-// engine/physics.py and engine/collision.py (the port's plain torch path):
+// One world's rigid-body substep as device functions for a group of lanes,
+// stage by stage after engine/physics.py and engine/collision.py (the port's
+// plain torch path):
 //
 //   integrate_velocities -> collide (walls, body pairs) -> match_impulses ->
 //   init_constraints -> warm_start -> velocity_sweep x vel_iters ->
@@ -9,19 +10,46 @@
 // Each stage keeps physics.py's float32 op order (sources build with
 // --fmad=false, IEEE division and square root), so a world here follows the
 // plain version up to the order of a few sums and cosf/sinf against
-// torch.cos/torch.sin. One thread owns one world; topology and constants
-// come from the SpecF/SpecI tables (filled by engine/mega.py), sized by
-// compile-time maxima that cover the whole env zoo. Two kernels include
-// this header: mega_rollout.cu runs every stage, and batched_solver.cu runs
-// velocity_solve and position_solve on a SolveBundle that physics.py's plain
-// presolve built; an edit of those two stages moves both kernels.
+// torch.cos/torch.sin. Topology and constants come from the SpecF/SpecI
+// tables (filled by engine/mega.py), sized by compile-time maxima that cover
+// the whole env zoo. Two kernels include this header: mega_rollout.cu runs
+// every stage, and batched_solver.cu runs velocity_solve and position_solve
+// on a SolveBundle that physics.py's plain presolve built; an edit of those
+// two stages moves both kernels.
+//
+// A world is a group of G lanes (a cooperative_groups tile of 4, 8, 16 or 32
+// lanes, G >= the spec's bodies), and lane i owns body i. The stages that
+// the plain version runs over bodies at once run on every lane at once:
+// velocity integration and damping, the wall narrowphase and its constraint
+// init, the wall block of each velocity sweep and of each NGS iteration
+// (sequential over walls within the lane), position integration, the
+// warm-start sums (each lane adds its own body's terms in the plain order)
+// and the sleep test. Pair narrowphase and pair and joint init run on lanes
+// by pair or joint index. The chains the plain version runs slot by slot
+// (the joint and pair blocks of a sweep and of an NGS iteration) run on the
+// group's lane 0, reading and writing the bodies' velocities and poses in
+// shared memory. The sweep's largest impulse delta, the NGS's least
+// separation and the island minimum are max/min reductions over the group,
+// which no order changes, so every world keeps its own exits. Lanes >= n
+// compute nothing and write nothing; they only join the group's syncs and
+// reductions, and no sync spans more than the group's own lanes.
+//
+// Where the state lives: the lane's own wall contacts (WallC, MW of them)
+// in its registers; what other lanes index (body velocities and poses,
+// masses, the pair and joint records, island labels) in the block's dynamic
+// shared memory, one World slice per group, sized by the spec's own G, np
+// and nj (world_words).
 #pragma once
 
 #include <math.h>
 
+#include <cooperative_groups.h>
+
 #define PHYS_FN __device__ __forceinline__
 
 namespace phys {
+
+namespace cg = cooperative_groups;
 
 constexpr int MB = 18;   // bodies (CrabCube)
 constexpr int MJ = 16;   // joint slots
@@ -73,19 +101,9 @@ struct SpecI {
   int j_pa[MJ], j_ch[MJ], j_limited[MJ], j_equal[MJ], j_valid[MJ];
 };
 
-// One world's WorldState (engine/physics.py), in the port's dtypes.
-struct State {
-  float cx[MB], cy[MB], a[MB], vx[MB], vy[MB], w[MB], sleep[MB];
-  bool circ[MB];
-  float wc_imp[MB][MW][2][2];
-  int wc_id[MB][MW][2];
-  float pc_imp[MP][2][2];
-  int pc_id[MP][2];
-  float j_imp[MJ][2], j_mot[MJ], j_lim[MJ], j_ref[MJ], prev_motor[MJ];
-  int j_state[MJ];
-};
-
-// A wall contact (body, wall): manifold and solver constants.
+// A wall contact (the lane's body, one wall): manifold and solver constants,
+// in the owning lane's registers. Between substeps imp and ids hold the
+// warm-start carry (0 and -1 where the point does not touch).
 struct WallC {
   bool touch[2], vtouch[2], block;
   int ids[2];
@@ -95,33 +113,108 @@ struct WallC {
   float imp[2][2];                       // [point][normal, tangent]
 };
 
-// A body-pair contact: manifold and solver constants.
+// A body-pair contact in shared memory (flags as int, 48 words). Between
+// substeps imp and ids hold the warm-start carry, as in WallC.
 struct PairC {
-  bool touch[2], vtouch[2], block;
-  int ids[2], mtype;
+  int touch[2], vtouch[2], block, ids[2], mtype;
   float nx, ny;
   float rax[2], ray[2], rbx[2], rby[2];
   float lnx, lny, lppx, lppy, lpsx[2], lpsy[2], rad_sub;
   float nmass[2], tmass[2], bias[2], kn[2], k12;
   float imA, imB, iiA, iiB;
   float imp[2][2];
+  float Px, Py, tA, tB;                  // warm-start impulse and torques
 };
 
+// A joint slot in shared memory (18 words): the substep's constants, the
+// warm-start carry (imp, mot, lim, state), the reference angle, the motor
+// speed of this step and of the last.
 struct JointC {
   float rax, ray, rbx, rby, axmass, mA, mB, iA, iB;
   int state;
+  float imp[2], mot, lim;
+  float ref, prev_motor, ms;
+  int mchg;                              // motor speed changed this step
 };
 
-// Scratch of one substep.
-struct Work {
-  float inv_m[MB], inv_i[MB], lcx[MB], lcy[MB];   // per episode (is_circle)
-  float cs[MB], sn[MB];
-  float vx[MB], vy[MB], w[MB];                    // the solver's velocities
-  float cx[MB], cy[MB], a[MB];                    // the position solve's poses
-  WallC wc[MB][MW];
-  PairC pc[MP];
-  JointC jc[MJ];
-  float j_imp[MJ][2], j_mot[MJ], j_lim[MJ];
+// One world's slice of the block's dynamic shared memory, in 4-byte words:
+// BODY_ARRAYS arrays of G words (lane i's body at index i), np pair records,
+// nj joint records, padded so that world_words % 32 == G % 32. The slices of
+// the 32 / G worlds of a warp then start G banks apart, so neither the
+// body-parallel stages (lane (k, i) at word k * world_words + f * G + i) nor
+// the lane-0 chains (one lane per world, at the same field offset) put two
+// lanes of a warp on one bank. engine/mega.py mirrors these three constants
+// and the formula.
+constexpr int BODY_ARRAYS = 18;
+constexpr int PAIR_WORDS = 48;
+constexpr int JOINT_WORDS = 18;
+static_assert(sizeof(PairC) == PAIR_WORDS * 4, "PairC is 48 words");
+static_assert(sizeof(JointC) == JOINT_WORDS * 4, "JointC is 18 words");
+
+__host__ __device__ inline int world_words(int G, int np, int nj) {
+  const int w = BODY_ARRAYS * G + PAIR_WORDS * np + JOINT_WORDS * nj;
+  return w + ((G % 32) - w % 32 + 32) % 32;
+}
+
+template <unsigned G>
+struct World {
+  float* b;                              // the BODY_ARRAYS arrays
+  PairC* pc;
+  JointC* jc;
+  // the solver's velocities and the position solve's poses
+  PHYS_FN float& vx(int i) const { return b[i]; }
+  PHYS_FN float& vy(int i) const { return b[G + i]; }
+  PHYS_FN float& w(int i) const { return b[2 * G + i]; }
+  PHYS_FN float& cx(int i) const { return b[3 * G + i]; }
+  PHYS_FN float& cy(int i) const { return b[4 * G + i]; }
+  PHYS_FN float& a(int i) const { return b[5 * G + i]; }
+  // the state's poses (the substep's start)
+  PHYS_FN float& sx(int i) const { return b[6 * G + i]; }
+  PHYS_FN float& sy(int i) const { return b[7 * G + i]; }
+  PHYS_FN float& sa(int i) const { return b[8 * G + i]; }
+  PHYS_FN float& cs(int i) const { return b[9 * G + i]; }
+  PHYS_FN float& sn(int i) const { return b[10 * G + i]; }
+  PHYS_FN float& im(int i) const { return b[11 * G + i]; }
+  PHYS_FN float& ii(int i) const { return b[12 * G + i]; }
+  PHYS_FN float& lcx(int i) const { return b[13 * G + i]; }
+  PHYS_FN float& lcy(int i) const { return b[14 * G + i]; }
+  PHYS_FN float& sleep(int i) const { return b[15 * G + i]; }
+  PHYS_FN int& circ(int i) const { return reinterpret_cast<int*>(b)[16 * G + i]; }
+  PHYS_FN int& label(int i) const { return reinterpret_cast<int*>(b)[17 * G + i]; }
+};
+
+// The slice of group `slot` of the block.
+template <unsigned G>
+PHYS_FN World<G> world_view(float* smem, int slot, int np, int nj) {
+  World<G> W;
+  W.b = smem + (long)slot * world_words(G, np, nj);
+  W.pc = reinterpret_cast<PairC*>(W.b + BODY_ARRAYS * G);
+  W.jc = reinterpret_cast<JointC*>(W.b + BODY_ARRAYS * G + PAIR_WORDS * np);
+  return W;
+}
+
+template <unsigned G>
+using Group = cg::thread_block_tile<G>;
+
+// Max / min over the group's lanes; exact in any order.
+template <unsigned G>
+PHYS_FN float group_max(const Group<G>& g, float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o /= 2) v = fmaxf(v, g.shfl_xor(v, o));
+  return v;
+}
+
+template <unsigned G>
+PHYS_FN float group_min(const Group<G>& g, float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o /= 2) v = fminf(v, g.shfl_xor(v, o));
+  return v;
+}
+
+// A body's pose at the substep's start, for the narrowphase.
+struct Pose {
+  float cx, cy, cs, sn;
+  bool circ;
 };
 
 // ---- small vector helpers (physics.py / collision.py op order) -------------
@@ -342,31 +435,28 @@ PHYS_FN void clip_face(const float* rvx, const float* rvy, const float* rnx,
 }
 
 // Manifold of the body pair (a, b), dispatched on the per-world shapes.
-PHYS_FN void collide_pair(const SpecF& F, const SpecI& I, const State& S,
-                          const Work& X, int a, int b, Manifold& m) {
-  const bool ca = S.circ[a], cb = S.circ[b];
+PHYS_FN void collide_pair(const SpecF& F, const SpecI& I, int a,
+                          const Pose& A, int b, const Pose& Bp, Manifold& m) {
+  const bool ca = A.circ, cb = Bp.circ;
   if (ca && cb) {
-    collide_circles(S.cx[a], S.cy[a], F.radius[a], S.cx[b], S.cy[b],
-                    F.radius[b], m);
+    collide_circles(A.cx, A.cy, F.radius[a], Bp.cx, Bp.cy, F.radius[b], m);
     return;
   }
   float avx[MV], avy[MV], anx[MV], any[MV], bvx[MV], bvy[MV], bnx[MV], bny[MV];
   const int nva = I.nverts[a], nvb = I.nverts[b];
-  if (!ca)
-    world_poly(F, a, S.cx[a], S.cy[a], X.cs[a], X.sn[a], nva, avx, avy, anx, any);
-  if (!cb)
-    world_poly(F, b, S.cx[b], S.cy[b], X.cs[b], X.sn[b], nvb, bvx, bvy, bnx, bny);
+  if (!ca) world_poly(F, a, A.cx, A.cy, A.cs, A.sn, nva, avx, avy, anx, any);
+  if (!cb) world_poly(F, b, Bp.cx, Bp.cy, Bp.cs, Bp.sn, nvb, bvx, bvy, bnx, bny);
   if (ca) {            // circle A, polygon B: B's face manifold, flipped
-    collide_poly_circle(bvx, bvy, bnx, bny, nvb, S.cx[b], S.cy[b], X.cs[b],
-                        X.sn[b], S.cx[a], S.cy[a], F.radius[a], m);
+    collide_poly_circle(bvx, bvy, bnx, bny, nvb, Bp.cx, Bp.cy, Bp.cs, Bp.sn,
+                        A.cx, A.cy, F.radius[a], m);
     m.nx = -m.nx;
     m.ny = -m.ny;
     m.mtype = 2;
     return;
   }
   if (cb) {
-    collide_poly_circle(avx, avy, anx, any, nva, S.cx[a], S.cy[a], X.cs[a],
-                        X.sn[a], S.cx[b], S.cy[b], F.radius[b], m);
+    collide_poly_circle(avx, avy, anx, any, nva, A.cx, A.cy, A.cs, A.sn,
+                        Bp.cx, Bp.cy, F.radius[b], m);
     return;
   }
   int fa, fb;
@@ -374,24 +464,24 @@ PHYS_FN void collide_pair(const SpecF& F, const SpecI& I, const State& S,
   const float sep_b = max_separation(bvx, bvy, bnx, bny, nvb, avx, avy, nva, fb);
   const bool no_contact = sep_a > TOTAL_R || sep_b > TOTAL_R;
   if (sep_b > sep_a + FACE_TOL)
-    clip_face(bvx, bvy, bnx, bny, nvb, fb, S.cx[b], S.cy[b], X.cs[b], X.sn[b],
-              avx, avy, anx, any, nva, S.cx[a], S.cy[a], X.cs[a], X.sn[a],
-              true, m);
+    clip_face(bvx, bvy, bnx, bny, nvb, fb, Bp.cx, Bp.cy, Bp.cs, Bp.sn, avx,
+              avy, anx, any, nva, A.cx, A.cy, A.cs, A.sn, true, m);
   else
-    clip_face(avx, avy, anx, any, nva, fa, S.cx[a], S.cy[a], X.cs[a], X.sn[a],
-              bvx, bvy, bnx, bny, nvb, S.cx[b], S.cy[b], X.cs[b], X.sn[b],
-              false, m);
+    clip_face(avx, avy, anx, any, nva, fa, A.cx, A.cy, A.cs, A.sn, bvx, bvy,
+              bnx, bny, nvb, Bp.cx, Bp.cy, Bp.cs, Bp.sn, false, m);
   m.touch[0] = m.touch[0] && !no_contact;
   m.touch[1] = m.touch[1] && !no_contact;
 }
 
-// Body i against the inward half-plane wi (collide_wall).
-PHYS_FN void collide_wall(const SpecF& F, const SpecI& I, const State& S,
-                          const Work& X, int i, int wi, Manifold& m) {
+// Body i against the inward half-plane wi (collide_wall). The two deepest
+// vertices are picked in one pass over the polygon (ties to the lower index,
+// a stable sort), carrying their world positions along.
+PHYS_FN void collide_wall(const SpecF& F, const SpecI& I, int i,
+                          const Pose& P, int wi, Manifold& m) {
   const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
   const float off = F.wall_off[wi];
-  const float cx = S.cx[i], cy = S.cy[i];
-  if (S.circ[i]) {
+  const float cx = P.cx, cy = P.cy;
+  if (P.circ) {
     const float r = F.radius[i];
     m.sep[0] = ((dot2(nx, ny, cx, cy) - off) - r) - POLY_RADIUS;
     m.sep[1] = BIG;
@@ -402,25 +492,29 @@ PHYS_FN void collide_wall(const SpecF& F, const SpecI& I, const State& S,
     m.rad_sub = r + POLY_RADIUS;
   } else {
     const int nv = I.nverts[i];
-    float wvx[MV], wvy[MV], wnx[MV], wny[MV];
-    world_poly(F, i, cx, cy, X.cs[i], X.sn[i], nv, wvx, wvy, wnx, wny);
-    // the two deepest vertices, ties to the lower index (a stable sort)
     int i1 = -1, i2 = -1;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int v = 0; v < nv; ++v) {
-      const float s = (dot2(wvx[v], wvy[v], nx, ny) - off) - TOTAL_R;
-      if (i1 < 0 || s < s1) { i2 = i1; s2 = s1; i1 = v; s1 = s; }
-      else if (i2 < 0 || s < s2) { i2 = v; s2 = s; }
+    float s1 = 0.0f, s2 = 0.0f, x1 = 0.0f, y1 = 0.0f, x2 = 0.0f, y2 = 0.0f;
+#pragma unroll
+    for (int v = 0; v < MV; ++v) {
+      if (v >= nv) break;
+      float rx, ry;
+      rot(P.cs, P.sn, F.verts[i][v][0], F.verts[i][v][1], rx, ry);
+      const float wx = cx + rx, wy = cy + ry;
+      const float s = (dot2(wx, wy, nx, ny) - off) - TOTAL_R;
+      if (i1 < 0 || s < s1) {
+        i2 = i1; s2 = s1; x2 = x1; y2 = y1;
+        i1 = v; s1 = s; x1 = wx; y1 = wy;
+      } else if (i2 < 0 || s < s2) {
+        i2 = v; s2 = s; x2 = wx; y2 = wy;
+      }
     }
-    const int iv[2] = {i1, i2};
     m.sep[0] = s1;
     m.sep[1] = s2;
-    for (int k = 0; k < 2; ++k) {
-      m.px[k] = wvx[iv[k]];
-      m.py[k] = wvy[iv[k]];
-      m.ids[k] = iv[k];
-      rot_t(X.cs[i], X.sn[i], m.px[k] - cx, m.py[k] - cy, m.lpsx[k], m.lpsy[k]);
-    }
+    m.px[0] = x1; m.py[0] = y1; m.ids[0] = i1;
+    m.px[1] = x2; m.py[1] = y2; m.ids[1] = i2;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      rot_t(P.cs, P.sn, m.px[k] - cx, m.py[k] - cy, m.lpsx[k], m.lpsy[k]);
     m.rad_sub = TOTAL_R;
   }
   m.touch[0] = m.sep[0] <= 0.0f;
@@ -431,14 +525,15 @@ PHYS_FN void collide_wall(const SpecF& F, const SpecI& I, const State& S,
 PHYS_FN void match_impulses(const int* new_ids, const bool* touch,
                             const int* old_ids, const float (*old_imp)[2],
                             float (*imp)[2]) {
+#pragma unroll
   for (int k = 0; k < 2; ++k)
+#pragma unroll
     for (int q = 0; q < 2; ++q) {
       const float e0 = new_ids[k] == old_ids[0] ? 1.0f : 0.0f;
       const float e1 = new_ids[k] == old_ids[1] ? 1.0f : 0.0f;
       imp[k][q] = touch[k] ? e0 * old_imp[0][q] + e1 * old_imp[1][q] : 0.0f;
     }
 }
-
 
 // ---- the solver stages (physics.py) ----------------------------------------
 
@@ -502,45 +597,67 @@ PHYS_FN void joint_block(int state, float cd1x, float cd1y, float cd2,
   }
 }
 
+
+// ---- the stages, for one world's group of lanes ----------------------------
+
 // Per-episode body constants from the shape flags (body_inv_mass,
-// local_center).
-PHYS_FN void body_constants(const SpecF& F, const SpecI& I, const State& S,
-                            Work& X) {
-  for (int i = 0; i < I.n; ++i) {
-    const int v = S.circ[i] ? 0 : 1;
-    X.inv_m[i] = F.inv_m[i][v];
-    X.inv_i[i] = F.inv_i[i][v];
-    X.lcx[i] = F.lc[i][v][0];
-    X.lcy[i] = F.lc[i][v][1];
+// local_center), lane i for body i.
+template <unsigned G>
+PHYS_FN void body_constants(const Group<G>& g, const SpecF& F, const SpecI& I,
+                            const World<G>& W) {
+  const int i = g.thread_rank();
+  if (i < I.n) {
+    const int v = W.circ(i) ? 0 : 1;
+    W.im(i) = F.inv_m[i][v];
+    W.ii(i) = F.inv_i[i][v];
+    W.lcx(i) = F.lc[i][v][0];
+    W.lcy(i) = F.lc[i][v][1];
   }
 }
 
-// Steps 1-4 (_presolve up to the warm start): integrate velocities,
-// narrowphase, warm-start matching, constraint init.
-PHYS_FN void presolve(const SpecF& F, const SpecI& I, const State& S, Work& X) {
-  const int n = I.n;
-  for (int i = 0; i < n; ++i) {
-    X.vx[i] = (S.vx[i] + F.dtg[0]) / F.lin_div[i];
-    X.vy[i] = (S.vy[i] + F.dtg[1]) / F.lin_div[i];
-    X.w[i] = S.w[i] / F.ang_div[i];
-    X.cs[i] = cosf(S.a[i]);
-    X.sn[i] = sinf(S.a[i]);
-  }
-  // walls: the static wall is body A with zero mass
-  for (int i = 0; i < n; ++i) {
-    const float im = X.inv_m[i], ii = X.inv_i[i];
-    for (int wi = 0; wi < I.nw; ++wi) {
-      WallC& C = X.wc[i][wi];
+// The lane's own body between substeps: the state's velocities.
+struct Own {
+  float vx, vy, w;
+};
+
+// Steps 1-4 (_presolve up to the warm start): integrate velocities, wall
+// narrowphase and constraint init on every body's lane; then pair
+// narrowphase and init by pair index, joint init by joint index.
+template <unsigned G>
+PHYS_FN void presolve(const Group<G>& g, const SpecF& F, const SpecI& I,
+                      const World<G>& W, const Own& o, WallC (&wc)[MW]) {
+  const int i = g.thread_rank();
+  if (i < I.n) {
+    const float vx = (o.vx + F.dtg[0]) / F.lin_div[i];
+    const float vy = (o.vy + F.dtg[1]) / F.lin_div[i];
+    const float w = o.w / F.ang_div[i];
+    W.vx(i) = vx;
+    W.vy(i) = vy;
+    W.w(i) = w;
+    const float sa = W.sa(i);
+    const Pose P = {W.sx(i), W.sy(i), cosf(sa), sinf(sa), W.circ(i) != 0};
+    W.cs(i) = P.cs;
+    W.sn(i) = P.sn;
+    // walls: the static wall is body A with zero mass
+    const float im = W.im(i), ii = W.ii(i);
+#pragma unroll
+    for (int wi = 0; wi < MW; ++wi) {
+      if (wi >= I.nw) break;
+      WallC& C = wc[wi];
       Manifold m;
-      collide_wall(F, I, S, X, i, wi, m);
+      collide_wall(F, I, i, P, wi, m);
       const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
       const float tx = ny, ty = -nx;
+      const int old_ids[2] = {C.ids[0], C.ids[1]};
+      const float old_imp[2][2] = {{C.imp[0][0], C.imp[0][1]},
+                                   {C.imp[1][0], C.imp[1][1]}};
       float rn[2], kt[2];
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
         C.touch[k] = m.touch[k];
         C.ids[k] = m.ids[k];
-        C.rbx[k] = m.px[k] - S.cx[i];
-        C.rby[k] = m.py[k] - S.cy[i];
+        C.rbx[k] = m.px[k] - P.cx;
+        C.rby[k] = m.py[k] - P.cy;
         C.lpx[k] = m.lpsx[k];
         C.lpy[k] = m.lpsy[k];
         rn[k] = cross_vv(C.rbx[k], C.rby[k], nx, ny);
@@ -549,7 +666,7 @@ PHYS_FN void presolve(const SpecF& F, const SpecI& I, const State& S, Work& X) {
         kt[k] = im + ii * (rt * rt);
       }
       C.rad_sub = m.rad_sub;
-      match_impulses(C.ids, C.touch, S.wc_id[i][wi], S.wc_imp[i][wi], C.imp);
+      match_impulses(C.ids, C.touch, old_ids, old_imp, C.imp);
       C.k12 = im + ii * rn[0] * rn[1];
       const float det = C.kn[0] * C.kn[1] - C.k12 * C.k12;
       const bool cond = C.kn[0] * C.kn[0] < 1000.0f * det;
@@ -557,43 +674,55 @@ PHYS_FN void presolve(const SpecF& F, const SpecI& I, const State& S, Work& X) {
       C.block = both && cond;
       C.vtouch[0] = C.touch[0];
       C.vtouch[1] = C.touch[1] && !(both && !cond);
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
         const bool vt = C.vtouch[k];
         if (!vt) C.imp[k][0] = C.imp[k][1] = 0.0f;
         C.nmass[k] = vt ? 1.0f / fmaxf(C.kn[k], 1e-12f) : 0.0f;
         C.tmass[k] = vt ? 1.0f / fmaxf(kt[k], 1e-12f) : 0.0f;
-        const float dvx = X.vx[i] + (-X.w[i]) * C.rby[k];
-        const float dvy = X.vy[i] + X.w[i] * C.rbx[k];
+        const float dvx = vx + (-w) * C.rby[k];
+        const float dvy = vy + w * C.rbx[k];
         const float vn0 = dot2(dvx, dvy, nx, ny);
         C.bias[k] = vn0 < -VELOCITY_THRESHOLD ? (-F.w_e[i]) * vn0 : 0.0f;
       }
     }
   }
-  // body pairs
-  for (int p = 0; p < I.np; ++p) {
-    PairC& C = X.pc[p];
+  g.sync();   // pairs and joints read other bodies' velocities and cos/sin
+  // body pairs, by pair index
+  for (int p = i; p < I.np; p += G) {
+    PairC& C = W.pc[p];
     if (!I.pair_valid[p]) {
-      C.touch[0] = C.touch[1] = C.vtouch[0] = C.vtouch[1] = C.block = false;
+      C.touch[0] = C.touch[1] = C.vtouch[0] = C.vtouch[1] = C.block = 0;
       C.ids[0] = C.ids[1] = 0;
       continue;
     }
     const int a = I.pair_a[p], b = I.pair_b[p];
+    const Pose A = {W.sx(a), W.sy(a), W.cs(a), W.sn(a), W.circ(a) != 0};
+    const Pose Bp = {W.sx(b), W.sy(b), W.cs(b), W.sn(b), W.circ(b) != 0};
     Manifold m;
-    collide_pair(F, I, S, X, a, b, m);
+    collide_pair(F, I, a, A, b, Bp, m);
     C.nx = m.nx; C.ny = m.ny;
     C.mtype = m.mtype;
     C.lnx = m.lnx; C.lny = m.lny; C.lppx = m.lppx; C.lppy = m.lppy;
     C.rad_sub = m.rad_sub;
     const float tx = m.ny, ty = -m.nx;
-    C.imA = X.inv_m[a]; C.imB = X.inv_m[b];
-    C.iiA = X.inv_i[a]; C.iiB = X.inv_i[b];
-    float rnA[2], rnB[2], kt[2];
+    C.imA = W.im(a); C.imB = W.im(b);
+    C.iiA = W.ii(a); C.iiB = W.ii(b);
+    const int old_ids[2] = {C.ids[0], C.ids[1]};
+    const float old_imp[2][2] = {{C.imp[0][0], C.imp[0][1]},
+                                 {C.imp[1][0], C.imp[1][1]}};
+    bool touch[2];
+    int ids[2];
+    float imp[2][2], rnA[2], rnB[2], kt[2];
+#pragma unroll
     for (int k = 0; k < 2; ++k) {
-      C.touch[k] = m.touch[k];
-      C.ids[k] = m.ids[k];
+      touch[k] = m.touch[k];
+      ids[k] = m.ids[k];
+      C.touch[k] = touch[k];
+      C.ids[k] = ids[k];
       C.lpsx[k] = m.lpsx[k]; C.lpsy[k] = m.lpsy[k];
-      C.rax[k] = m.px[k] - S.cx[a]; C.ray[k] = m.py[k] - S.cy[a];
-      C.rbx[k] = m.px[k] - S.cx[b]; C.rby[k] = m.py[k] - S.cy[b];
+      C.rax[k] = m.px[k] - A.cx; C.ray[k] = m.py[k] - A.cy;
+      C.rbx[k] = m.px[k] - Bp.cx; C.rby[k] = m.py[k] - Bp.cy;
       rnA[k] = cross_vv(C.rax[k], C.ray[k], m.nx, m.ny);
       rnB[k] = cross_vv(C.rbx[k], C.rby[k], m.nx, m.ny);
       C.kn[k] = ((C.imA + C.imB) + C.iiA * (rnA[k] * rnA[k]))
@@ -602,84 +731,72 @@ PHYS_FN void presolve(const SpecF& F, const SpecI& I, const State& S, Work& X) {
       const float rtB = cross_vv(C.rbx[k], C.rby[k], tx, ty);
       kt[k] = ((C.imA + C.imB) + C.iiA * (rtA * rtA)) + C.iiB * (rtB * rtB);
     }
-    match_impulses(C.ids, C.touch, S.pc_id[p], S.pc_imp[p], C.imp);
+    match_impulses(ids, touch, old_ids, old_imp, imp);
     C.k12 = ((C.imA + C.imB) + C.iiA * rnA[0] * rnA[1]) + C.iiB * rnB[0] * rnB[1];
     const float det = C.kn[0] * C.kn[1] - C.k12 * C.k12;
     const bool cond = C.kn[0] * C.kn[0] < 1000.0f * det;
-    const bool both = C.touch[0] && C.touch[1];
+    const bool both = touch[0] && touch[1];
     C.block = both && cond;
-    C.vtouch[0] = C.touch[0];
-    C.vtouch[1] = C.touch[1] && !(both && !cond);
+    const bool vtouch[2] = {touch[0], touch[1] && !(both && !cond)};
+#pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const bool vt = C.vtouch[k];
-      if (!vt) C.imp[k][0] = C.imp[k][1] = 0.0f;
+      const bool vt = vtouch[k];
+      C.vtouch[k] = vt;
+      if (!vt) imp[k][0] = imp[k][1] = 0.0f;
+      C.imp[k][0] = imp[k][0];
+      C.imp[k][1] = imp[k][1];
       C.nmass[k] = vt ? 1.0f / fmaxf(C.kn[k], 1e-12f) : 0.0f;
       C.tmass[k] = vt ? 1.0f / fmaxf(kt[k], 1e-12f) : 0.0f;
-      const float dvx = ((X.vx[b] + (-X.w[b]) * C.rby[k]) - X.vx[a])
-          - (-X.w[a]) * C.ray[k];
-      const float dvy = ((X.vy[b] + X.w[b] * C.rbx[k]) - X.vy[a])
-          - X.w[a] * C.rax[k];
+      const float dvx = ((W.vx(b) + (-W.w(b)) * C.rby[k]) - W.vx(a))
+          - (-W.w(a)) * C.ray[k];
+      const float dvy = ((W.vy(b) + W.w(b) * C.rbx[k]) - W.vy(a))
+          - W.w(a) * C.rax[k];
       const float vn0 = dot2(dvx, dvy, m.nx, m.ny);
       C.bias[k] = vn0 < -VELOCITY_THRESHOLD ? (-F.p_e[p]) * vn0 : 0.0f;
     }
   }
-  // joints
-  for (int j = 0; j < I.nj; ++j) {
-    JointC& J = X.jc[j];
+  // joints, by joint index
+  for (int j = i; j < I.nj; j += G) {
+    JointC& J = W.jc[j];
     const int pa = I.j_pa[j], ch = I.j_ch[j];
-    rot(X.cs[pa], X.sn[pa], F.j_anchor_a[j][0] - X.lcx[pa],
-        F.j_anchor_a[j][1] - X.lcy[pa], J.rax, J.ray);
-    rot(X.cs[ch], X.sn[ch], F.j_anchor_b[j][0] - X.lcx[ch],
-        F.j_anchor_b[j][1] - X.lcy[ch], J.rbx, J.rby);
-    J.mA = X.inv_m[pa]; J.mB = X.inv_m[ch];
-    J.iA = X.inv_i[pa]; J.iB = X.inv_i[ch];
+    const float vf = F.j_validf[j];
+    rot(W.cs(pa), W.sn(pa), F.j_anchor_a[j][0] - W.lcx(pa),
+        F.j_anchor_a[j][1] - W.lcy(pa), J.rax, J.ray);
+    rot(W.cs(ch), W.sn(ch), F.j_anchor_b[j][0] - W.lcx(ch),
+        F.j_anchor_b[j][1] - W.lcy(ch), J.rbx, J.rby);
+    J.mA = W.im(pa); J.mB = W.im(ch);
+    J.iA = W.ii(pa); J.iB = W.ii(ch);
     const float raw = J.iA + J.iB;
-    J.axmass = (raw > 0.0f ? 1.0f / fmaxf(raw, 1e-12f) : 0.0f) * F.j_validf[j];
-    const float ang = (S.a[ch] - S.a[pa]) - S.j_ref[j];
+    J.axmass = (raw > 0.0f ? 1.0f / fmaxf(raw, 1e-12f) : 0.0f) * vf;
+    const float ang = (W.sa(ch) - W.sa(pa)) - J.ref;
     int st = 0;
     if (I.j_limited[j] && I.j_valid[j]) {
       if (I.j_equal[j]) st = 3;
       else if (ang <= F.j_lower[j]) st = 1;
       else if (ang >= F.j_upper[j]) st = 2;
     }
+    J.lim = (st == J.state ? J.lim : 0.0f) * vf;
     J.state = st;
-    X.j_lim[j] = (st == S.j_state[j] ? S.j_lim[j] : 0.0f) * F.j_validf[j];
-    X.j_mot[j] = S.j_mot[j] * F.j_validf[j];
-    X.j_imp[j][0] = S.j_imp[j][0] * F.j_validf[j];
-    X.j_imp[j][1] = S.j_imp[j][1] * F.j_validf[j];
+    J.mot = J.mot * vf;
+    J.imp[0] = J.imp[0] * vf;
+    J.imp[1] = J.imp[1] * vf;
   }
+  g.sync();
 }
 
-// Step 5: warm start, in _presolve's order (walls; pairs on A then B;
-// joints on the parent then the child).
-PHYS_FN void warm_start(const SpecF& F, const SpecI& I, Work& X) {
-  for (int i = 0; i < I.n; ++i) {
-    float px = 0.0f, py = 0.0f, tq = 0.0f;
-    bool first = true;
-    for (int wi = 0; wi < I.nw; ++wi) {
-      const WallC& C = X.wc[i][wi];
-      const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
-      const float tx = ny, ty = -nx;
-      for (int k = 0; k < 2; ++k) {
-        const float Px = C.imp[k][0] * nx + C.imp[k][1] * tx;
-        const float Py = C.imp[k][0] * ny + C.imp[k][1] * ty;
-        const float t = cross_vv(C.rbx[k], C.rby[k], Px, Py);
-        px = first ? Px : px + Px;
-        py = first ? Py : py + Py;
-        tq = first ? t : tq + t;
-        first = false;
-      }
-    }
-    X.vx[i] = X.vx[i] + X.inv_m[i] * px;
-    X.vy[i] = X.vy[i] + X.inv_m[i] * py;
-    X.w[i] = X.w[i] + X.inv_i[i] * tq;
-  }
-  float Ppx[MP], Ppy[MP], tA[MP], tB[MP];
-  for (int p = 0; p < I.np; ++p) {
-    const PairC& C = X.pc[p];
+// Step 5: warm start. Each body's lane adds its own terms in _presolve's
+// order: walls; pairs on A, then on B; joints on the parent, then on the
+// child (velocities and angular velocities are separate sums).
+template <unsigned G>
+PHYS_FN void warm_start(const Group<G>& g, const SpecF& F, const SpecI& I,
+                        const World<G>& W, const WallC (&wc)[MW]) {
+  const int i = g.thread_rank();
+  for (int p = i; p < I.np; p += G) {
+    PairC& C = W.pc[p];
     if (!I.pair_valid[p]) continue;
     const float tx = C.ny, ty = -C.nx;
     float sx = 0.0f, sy = 0.0f, sa = 0.0f, sb = 0.0f;
+#pragma unroll
     for (int k = 0; k < 2; ++k) {
       const float Px = C.imp[k][0] * C.nx + C.imp[k][1] * tx;
       const float Py = C.imp[k][0] * C.ny + C.imp[k][1] * ty;
@@ -690,116 +807,150 @@ PHYS_FN void warm_start(const SpecF& F, const SpecI& I, Work& X) {
       sa = k ? sa + ca : ca;
       sb = k ? sb + cb : cb;
     }
-    Ppx[p] = sx; Ppy[p] = sy; tA[p] = sa; tB[p] = sb;
+    C.Px = sx; C.Py = sy; C.tA = sa; C.tB = sb;
   }
-  for (int p = 0; p < I.np; ++p) {
-    if (!I.pair_valid[p]) continue;
-    const int a = I.pair_a[p];
-    X.vx[a] = X.vx[a] + (-X.inv_m[a]) * Ppx[p];
-    X.vy[a] = X.vy[a] + (-X.inv_m[a]) * Ppy[p];
+  g.sync();
+  if (i < I.n) {
+    const float im = W.im(i), ii = W.ii(i);
+    float px = 0.0f, py = 0.0f, tq = 0.0f;
+    bool first = true;
+#pragma unroll
+    for (int wi = 0; wi < MW; ++wi) {
+      if (wi >= I.nw) break;
+      const WallC& C = wc[wi];
+      const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
+      const float tx = ny, ty = -nx;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float Px = C.imp[k][0] * nx + C.imp[k][1] * tx;
+        const float Py = C.imp[k][0] * ny + C.imp[k][1] * ty;
+        const float t = cross_vv(C.rbx[k], C.rby[k], Px, Py);
+        px = first ? Px : px + Px;
+        py = first ? Py : py + Py;
+        tq = first ? t : tq + t;
+        first = false;
+      }
+    }
+    float vx = W.vx(i) + im * px;
+    float vy = W.vy(i) + im * py;
+    float w = W.w(i) + ii * tq;
+    for (int p = 0; p < I.np; ++p) {
+      if (!I.pair_valid[p] || I.pair_a[p] != i) continue;
+      vx = vx + (-im) * W.pc[p].Px;
+      vy = vy + (-im) * W.pc[p].Py;
+    }
+    for (int p = 0; p < I.np; ++p) {
+      if (!I.pair_valid[p] || I.pair_b[p] != i) continue;
+      vx = vx + im * W.pc[p].Px;
+      vy = vy + im * W.pc[p].Py;
+    }
+    for (int p = 0; p < I.np; ++p) {
+      if (!I.pair_valid[p] || I.pair_a[p] != i) continue;
+      w = w + (-ii) * W.pc[p].tA;
+    }
+    for (int p = 0; p < I.np; ++p) {
+      if (!I.pair_valid[p] || I.pair_b[p] != i) continue;
+      w = w + ii * W.pc[p].tB;
+    }
+    for (int j = 0; j < I.jn; ++j) {
+      if (I.j_pa[j] != i) continue;
+      const JointC& J = W.jc[j];
+      vx = vx + (-J.mA) * J.imp[0];
+      vy = vy + (-J.mA) * J.imp[1];
+    }
+    for (int j = 0; j < I.jn; ++j) {
+      if (I.j_pa[j] != i) continue;
+      const JointC& J = W.jc[j];
+      w = w + (-J.iA) * (cross_vv(J.rax, J.ray, J.imp[0], J.imp[1])
+                         + (J.mot + J.lim));
+    }
+    for (int j = 0; j < I.jn; ++j) {
+      if (I.j_ch[j] != i) continue;
+      const JointC& J = W.jc[j];
+      vx = vx + J.mB * J.imp[0];
+      vy = vy + J.mB * J.imp[1];
+    }
+    for (int j = 0; j < I.jn; ++j) {
+      if (I.j_ch[j] != i) continue;
+      const JointC& J = W.jc[j];
+      w = w + J.iB * (cross_vv(J.rbx, J.rby, J.imp[0], J.imp[1])
+                      + (J.mot + J.lim));
+    }
+    W.vx(i) = vx;
+    W.vy(i) = vy;
+    W.w(i) = w;
   }
-  for (int p = 0; p < I.np; ++p) {
-    if (!I.pair_valid[p]) continue;
-    const int b = I.pair_b[p];
-    X.vx[b] = X.vx[b] + X.inv_m[b] * Ppx[p];
-    X.vy[b] = X.vy[b] + X.inv_m[b] * Ppy[p];
-  }
-  for (int p = 0; p < I.np; ++p) {
-    if (!I.pair_valid[p]) continue;
-    const int a = I.pair_a[p];
-    X.w[a] = X.w[a] + (-X.inv_i[a]) * tA[p];
-  }
-  for (int p = 0; p < I.np; ++p) {
-    if (!I.pair_valid[p]) continue;
-    const int b = I.pair_b[p];
-    X.w[b] = X.w[b] + X.inv_i[b] * tB[p];
-  }
-  for (int j = 0; j < I.jn; ++j) {
-    const JointC& J = X.jc[j];
-    const int pa = I.j_pa[j];
-    X.vx[pa] = X.vx[pa] + (-J.mA) * X.j_imp[j][0];
-    X.vy[pa] = X.vy[pa] + (-J.mA) * X.j_imp[j][1];
-  }
-  for (int j = 0; j < I.jn; ++j) {
-    const JointC& J = X.jc[j];
-    const int pa = I.j_pa[j];
-    const float ax = X.j_mot[j] + X.j_lim[j];
-    X.w[pa] = X.w[pa]
-        + (-J.iA) * (cross_vv(J.rax, J.ray, X.j_imp[j][0], X.j_imp[j][1]) + ax);
-  }
-  for (int j = 0; j < I.jn; ++j) {
-    const JointC& J = X.jc[j];
-    const int ch = I.j_ch[j];
-    X.vx[ch] = X.vx[ch] + J.mB * X.j_imp[j][0];
-    X.vy[ch] = X.vy[ch] + J.mB * X.j_imp[j][1];
-  }
-  for (int j = 0; j < I.jn; ++j) {
-    const JointC& J = X.jc[j];
-    const int ch = I.j_ch[j];
-    const float ax = X.j_mot[j] + X.j_lim[j];
-    X.w[ch] = X.w[ch]
-        + J.iB * (cross_vv(J.rbx, J.rby, X.j_imp[j][0], X.j_imp[j][1]) + ax);
-  }
+  g.sync();
 }
 
 // One Gauss-Seidel velocity sweep (_vel_sweep): joints (motor, then the
-// coupled limit + point solve), walls, body pairs. Returns the sweep's
-// largest |impulse delta| (for the convergence exit).
-PHYS_FN float velocity_sweep(const SpecF& F, const SpecI& I,
-                             const float* motor_speed, Work& X) {
+// coupled limit + point solve) on lane 0, walls on every body's lane, body
+// pairs on lane 0. Returns the sweep's largest |impulse delta| over the
+// group (for the convergence exit).
+template <unsigned G>
+PHYS_FN float velocity_sweep(const Group<G>& g, const SpecF& F,
+                             const SpecI& I, const World<G>& W,
+                             WallC (&wc)[MW]) {
+  const int i = g.thread_rank();
   float dm = 0.0f;
-  for (int j = 0; j < I.jn; ++j) {
-    const JointC& J = X.jc[j];
-    const int pa = I.j_pa[j], ch = I.j_ch[j];
-    if (!I.j_equal[j]) {
-      const float cdot = (X.w[ch] - X.w[pa]) - motor_speed[j];
-      const float imp = (-J.axmass) * cdot;
-      const float cap = F.j_cap[j];
-      const float nw = clampf(X.j_mot[j] + imp, -cap, cap);
-      const float d = nw - X.j_mot[j];
-      X.j_mot[j] = X.j_mot[j] + d;
-      X.w[pa] = X.w[pa] - J.iA * d;
-      X.w[ch] = X.w[ch] + J.iB * d;
-      dm = fmaxf(dm, fabsf(d));
+  if (i == 0) {
+    for (int j = 0; j < I.jn; ++j) {
+      JointC& J = W.jc[j];
+      const int pa = I.j_pa[j], ch = I.j_ch[j];
+      if (!I.j_equal[j]) {
+        const float cdot = (W.w(ch) - W.w(pa)) - J.ms;
+        const float imp = (-J.axmass) * cdot;
+        const float cap = F.j_cap[j];
+        const float nw = clampf(J.mot + imp, -cap, cap);
+        const float d = nw - J.mot;
+        J.mot = J.mot + d;
+        W.w(pa) = W.w(pa) - J.iA * d;
+        W.w(ch) = W.w(ch) + J.iB * d;
+        dm = fmaxf(dm, fabsf(d));
+      }
+      const float wa = W.w(pa), wb = W.w(ch);
+      const float cd1x = ((W.vx(ch) + (-wb) * J.rby) - W.vx(pa)) - (-wa) * J.ray;
+      const float cd1y = ((W.vy(ch) + wb * J.rbx) - W.vy(pa)) - wa * J.rax;
+      const float cd2 = wb - wa;
+      const float k11 = ((J.mA + J.mB) + J.iA * (J.ray * J.ray)) + J.iB * (J.rby * J.rby);
+      const float k12 = ((-J.iA) * J.rax) * J.ray - (J.iB * J.rbx) * J.rby;
+      const float k13 = (-J.iA) * J.ray - J.iB * J.rby;
+      const float k22 = ((J.mA + J.mB) + J.iA * (J.rax * J.rax)) + J.iB * (J.rbx * J.rbx);
+      const float k23 = J.iA * J.rax + J.iB * J.rbx;
+      const float k33 = J.iA + J.iB;
+      float dx, dy, dz;
+      joint_block(J.state, cd1x, cd1y, cd2, J.lim, k11, k12, k13, k22, k23,
+                  k33, dx, dy, dz);
+      J.imp[0] = J.imp[0] + dx;
+      J.imp[1] = J.imp[1] + dy;
+      J.lim = J.lim + dz;
+      W.vx(pa) = W.vx(pa) - J.mA * dx;
+      W.vy(pa) = W.vy(pa) - J.mA * dy;
+      W.vx(ch) = W.vx(ch) + J.mB * dx;
+      W.vy(ch) = W.vy(ch) + J.mB * dy;
+      W.w(pa) = W.w(pa) - J.iA * (cross_vv(J.rax, J.ray, dx, dy) + dz);
+      W.w(ch) = W.w(ch) + J.iB * (cross_vv(J.rbx, J.rby, dx, dy) + dz);
+      dm = fmaxf(dm, fmaxf(fmaxf(fabsf(dx), fabsf(dy)), fabsf(dz)));
     }
-    const float cd1x = ((X.vx[ch] + (-X.w[ch]) * J.rby) - X.vx[pa])
-        - (-X.w[pa]) * J.ray;
-    const float cd1y = ((X.vy[ch] + X.w[ch] * J.rbx) - X.vy[pa])
-        - X.w[pa] * J.rax;
-    const float cd2 = X.w[ch] - X.w[pa];
-    const float k11 = ((J.mA + J.mB) + J.iA * (J.ray * J.ray)) + J.iB * (J.rby * J.rby);
-    const float k12 = ((-J.iA) * J.rax) * J.ray - (J.iB * J.rbx) * J.rby;
-    const float k13 = (-J.iA) * J.ray - J.iB * J.rby;
-    const float k22 = ((J.mA + J.mB) + J.iA * (J.rax * J.rax)) + J.iB * (J.rbx * J.rbx);
-    const float k23 = J.iA * J.rax + J.iB * J.rbx;
-    const float k33 = J.iA + J.iB;
-    float dx, dy, dz;
-    joint_block(J.state, cd1x, cd1y, cd2, X.j_lim[j], k11, k12, k13, k22,
-                k23, k33, dx, dy, dz);
-    X.j_imp[j][0] = X.j_imp[j][0] + dx;
-    X.j_imp[j][1] = X.j_imp[j][1] + dy;
-    X.j_lim[j] = X.j_lim[j] + dz;
-    X.vx[pa] = X.vx[pa] - J.mA * dx;
-    X.vy[pa] = X.vy[pa] - J.mA * dy;
-    X.vx[ch] = X.vx[ch] + J.mB * dx;
-    X.vy[ch] = X.vy[ch] + J.mB * dy;
-    X.w[pa] = X.w[pa] - J.iA * (cross_vv(J.rax, J.ray, dx, dy) + dz);
-    X.w[ch] = X.w[ch] + J.iB * (cross_vv(J.rbx, J.rby, dx, dy) + dz);
-    dm = fmaxf(dm, fmaxf(fmaxf(fabsf(dx), fabsf(dy)), fabsf(dz)));
   }
+  g.sync();
   // walls: per body, sequential over walls; a contact with no velocity
   // point is a no-op (zero masses and impulses) and is skipped
-  for (int i = 0; i < I.n; ++i) {
-    const float im = X.inv_m[i], ii = X.inv_i[i];
-    for (int wi = 0; wi < I.nw; ++wi) {
-      WallC& C = X.wc[i][wi];
+  if (i < I.n) {
+    const float im = W.im(i), ii = W.ii(i);
+    const float mu = F.w_mu[i];
+    float vx = W.vx(i), vy = W.vy(i), w = W.w(i);
+#pragma unroll
+    for (int wi = 0; wi < MW; ++wi) {
+      if (wi >= I.nw) break;
+      WallC& C = wc[wi];
       if (!(C.vtouch[0] || C.vtouch[1])) continue;
       const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
       const float tx = ny, ty = -nx;
-      const float mu = F.w_mu[i];
+#pragma unroll
       for (int k = 0; k < 2; ++k) {    // friction, both points
-        const float dvx = X.vx[i] + (-X.w[i]) * C.rby[k];
-        const float dvy = X.vy[i] + X.w[i] * C.rbx[k];
+        const float dvx = vx + (-w) * C.rby[k];
+        const float dvy = vy + w * C.rbx[k];
         const float vt = dvx * tx + dvy * ty;
         const float lam = (-C.tmass[k]) * vt;
         const float maxf = mu * C.imp[k][0];
@@ -808,15 +959,16 @@ PHYS_FN float velocity_sweep(const SpecF& F, const SpecI& I,
         const float d = nw - old;
         C.imp[k][1] = nw;
         const float Px = d * tx, Py = d * ty;
-        X.vx[i] = X.vx[i] + im * Px;
-        X.vy[i] = X.vy[i] + im * Py;
-        X.w[i] = X.w[i] + ii * cross_vv(C.rbx[k], C.rby[k], Px, Py);
+        vx = vx + im * Px;
+        vy = vy + im * Py;
+        w = w + ii * cross_vv(C.rbx[k], C.rby[k], Px, Py);
         dm = fmaxf(dm, fabsf(d));
       }
       // normal: sequential candidates, then the 2x2 block candidate
       const float a1 = C.imp[0][0], a2 = C.imp[1][0];
-      float vsx = X.vx[i], vsy = X.vy[i], ws = X.w[i];
+      float vsx = vx, vsy = vy, ws = w;
       float dseq[2];
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
         const float dvx = vsx + (-ws) * C.rby[k];
         const float dvy = vsy + ws * C.rbx[k];
@@ -833,348 +985,398 @@ PHYS_FN float velocity_sweep(const SpecF& F, const SpecI& I,
       }
       float d1 = dseq[0], d2 = dseq[1];
       if (C.block) {
-        const float vn1 = (X.vx[i] + (-X.w[i]) * C.rby[0]) * nx
-            + (X.vy[i] + X.w[i] * C.rbx[0]) * ny;
-        const float vn2 = (X.vx[i] + (-X.w[i]) * C.rby[1]) * nx
-            + (X.vy[i] + X.w[i] * C.rbx[1]) * ny;
+        const float vn1 = (vx + (-w) * C.rby[0]) * nx + (vy + w * C.rbx[0]) * ny;
+        const float vn2 = (vx + (-w) * C.rby[1]) * nx + (vy + w * C.rbx[1]) * ny;
         block_lcp(vn1 - C.bias[0], vn2 - C.bias[1], a1, a2, C.kn[0], C.kn[1],
                   C.k12, C.nmass[0], C.nmass[1], d1, d2);
       }
       const float s = d1 + d2;
-      X.vx[i] = X.vx[i] + im * (s * nx);
-      X.vy[i] = X.vy[i] + im * (s * ny);
-      X.w[i] = X.w[i] + ii * (cross_vv(C.rbx[0], C.rby[0], d1 * nx, d1 * ny)
-                              + cross_vv(C.rbx[1], C.rby[1], d2 * nx, d2 * ny));
+      vx = vx + im * (s * nx);
+      vy = vy + im * (s * ny);
+      w = w + ii * (cross_vv(C.rbx[0], C.rby[0], d1 * nx, d1 * ny)
+                    + cross_vv(C.rbx[1], C.rby[1], d2 * nx, d2 * ny));
+      C.imp[0][0] = a1 + d1;
+      C.imp[1][0] = a2 + d2;
+      dm = fmaxf(dm, fmaxf(fabsf(d1), fabsf(d2)));
+    }
+    W.vx(i) = vx;
+    W.vy(i) = vy;
+    W.w(i) = w;
+  }
+  g.sync();
+  // body pairs
+  if (i == 0) {
+    for (int p = 0; p < I.np; ++p) {
+      PairC& C = W.pc[p];
+      if (!I.pair_valid[p] || !(C.vtouch[0] || C.vtouch[1])) continue;
+      const int a = I.pair_a[p], b = I.pair_b[p];
+      const float nx = C.nx, ny = C.ny, tx = ny, ty = -nx;
+      const float mu = F.p_mu[p];
+      float vax = W.vx(a), vay = W.vy(a), wa = W.w(a);
+      float vbx = W.vx(b), vby = W.vy(b), wb = W.w(b);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float dvx = ((vbx + (-wb) * C.rby[k]) - vax) - (-wa) * C.ray[k];
+        const float dvy = ((vby + wb * C.rbx[k]) - vay) - wa * C.rax[k];
+        const float vt = dot2(dvx, dvy, tx, ty);
+        const float lam = (-C.tmass[k]) * vt;
+        const float maxf = mu * C.imp[k][0];
+        const float old = C.imp[k][1];
+        const float nw = clampf(old + lam, -maxf, maxf);
+        const float d = nw - old;
+        C.imp[k][1] = nw;
+        const float Px = d * tx, Py = d * ty;
+        vax = vax - C.imA * Px;
+        vay = vay - C.imA * Py;
+        vbx = vbx + C.imB * Px;
+        vby = vby + C.imB * Py;
+        wa = wa - C.iiA * cross_vv(C.rax[k], C.ray[k], Px, Py);
+        wb = wb + C.iiB * cross_vv(C.rbx[k], C.rby[k], Px, Py);
+        dm = fmaxf(dm, fabsf(d));
+      }
+      const float a1 = C.imp[0][0], a2 = C.imp[1][0];
+      float vsax = vax, vsay = vay, vsbx = vbx, vsby = vby;
+      float wsa = wa, wsb = wb;
+      float dseq[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float dvx = ((vsbx + (-wsb) * C.rby[k]) - vsax) - (-wsa) * C.ray[k];
+        const float dvy = ((vsby + wsb * C.rbx[k]) - vsay) - wsa * C.rax[k];
+        const float vn = dot2(dvx, dvy, nx, ny);
+        const float lam = (-C.nmass[k]) * (vn - C.bias[k]);
+        const float acc = k ? a2 : a1;
+        dseq[k] = fmaxf(acc + lam, 0.0f) - acc;
+        if (k == 0) {
+          const float Px = dseq[0] * nx, Py = dseq[0] * ny;
+          vsax = vsax - C.imA * Px;
+          vsay = vsay - C.imA * Py;
+          vsbx = vsbx + C.imB * Px;
+          vsby = vsby + C.imB * Py;
+          wsa = wsa - C.iiA * cross_vv(C.rax[0], C.ray[0], Px, Py);
+          wsb = wsb + C.iiB * cross_vv(C.rbx[0], C.rby[0], Px, Py);
+        }
+      }
+      float d1 = dseq[0], d2 = dseq[1];
+      if (C.block) {
+        float vn[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float dvx = ((vbx + (-wb) * C.rby[k]) - vax) - (-wa) * C.ray[k];
+          const float dvy = ((vby + wb * C.rbx[k]) - vay) - wa * C.rax[k];
+          vn[k] = dot2(dvx, dvy, nx, ny);
+        }
+        block_lcp(vn[0] - C.bias[0], vn[1] - C.bias[1], a1, a2, C.kn[0],
+                  C.kn[1], C.k12, C.nmass[0], C.nmass[1], d1, d2);
+      }
+      const float s = d1 + d2;
+      const float Px = s * nx, Py = s * ny;
+      vax = vax - C.imA * Px;
+      vay = vay - C.imA * Py;
+      vbx = vbx + C.imB * Px;
+      vby = vby + C.imB * Py;
+      const float n1x = d1 * nx, n1y = d1 * ny, n2x = d2 * nx, n2y = d2 * ny;
+      const float dw = cross_vv(C.rax[0], C.ray[0], n1x, n1y)
+          + cross_vv(C.rax[1], C.ray[1], n2x, n2y);
+      const float dwb = cross_vv(C.rbx[0], C.rby[0], n1x, n1y)
+          + cross_vv(C.rbx[1], C.rby[1], n2x, n2y);
+      wa = wa - C.iiA * dw;
+      wb = wb + C.iiB * dwb;
+      W.vx(a) = vax; W.vy(a) = vay; W.w(a) = wa;
+      W.vx(b) = vbx; W.vy(b) = vby; W.w(b) = wb;
       C.imp[0][0] = a1 + d1;
       C.imp[1][0] = a2 + d2;
       dm = fmaxf(dm, fmaxf(fabsf(d1), fabsf(d2)));
     }
   }
-  // body pairs
-  for (int p = 0; p < I.np; ++p) {
-    PairC& C = X.pc[p];
-    if (!I.pair_valid[p] || !(C.vtouch[0] || C.vtouch[1])) continue;
-    const int a = I.pair_a[p], b = I.pair_b[p];
-    const float nx = C.nx, ny = C.ny, tx = ny, ty = -nx;
-    const float mu = F.p_mu[p];
-    for (int k = 0; k < 2; ++k) {
-      const float dvx = ((X.vx[b] + (-X.w[b]) * C.rby[k]) - X.vx[a])
-          - (-X.w[a]) * C.ray[k];
-      const float dvy = ((X.vy[b] + X.w[b] * C.rbx[k]) - X.vy[a])
-          - X.w[a] * C.rax[k];
-      const float vt = dot2(dvx, dvy, tx, ty);
-      const float lam = (-C.tmass[k]) * vt;
-      const float maxf = mu * C.imp[k][0];
-      const float old = C.imp[k][1];
-      const float nw = clampf(old + lam, -maxf, maxf);
-      const float d = nw - old;
-      C.imp[k][1] = nw;
-      const float Px = d * tx, Py = d * ty;
-      X.vx[a] = X.vx[a] - C.imA * Px;
-      X.vy[a] = X.vy[a] - C.imA * Py;
-      X.vx[b] = X.vx[b] + C.imB * Px;
-      X.vy[b] = X.vy[b] + C.imB * Py;
-      X.w[a] = X.w[a] - C.iiA * cross_vv(C.rax[k], C.ray[k], Px, Py);
-      X.w[b] = X.w[b] + C.iiB * cross_vv(C.rbx[k], C.rby[k], Px, Py);
-      dm = fmaxf(dm, fabsf(d));
-    }
-    const float a1 = C.imp[0][0], a2 = C.imp[1][0];
-    float vsax = X.vx[a], vsay = X.vy[a], vsbx = X.vx[b], vsby = X.vy[b];
-    float wsa = X.w[a], wsb = X.w[b];
-    float dseq[2];
-    for (int k = 0; k < 2; ++k) {
-      const float dvx = ((vsbx + (-wsb) * C.rby[k]) - vsax) - (-wsa) * C.ray[k];
-      const float dvy = ((vsby + wsb * C.rbx[k]) - vsay) - wsa * C.rax[k];
-      const float vn = dot2(dvx, dvy, nx, ny);
-      const float lam = (-C.nmass[k]) * (vn - C.bias[k]);
-      const float acc = k ? a2 : a1;
-      dseq[k] = fmaxf(acc + lam, 0.0f) - acc;
-      if (k == 0) {
-        const float Px = dseq[0] * nx, Py = dseq[0] * ny;
-        vsax = vsax - C.imA * Px;
-        vsay = vsay - C.imA * Py;
-        vsbx = vsbx + C.imB * Px;
-        vsby = vsby + C.imB * Py;
-        wsa = wsa - C.iiA * cross_vv(C.rax[0], C.ray[0], Px, Py);
-        wsb = wsb + C.iiB * cross_vv(C.rbx[0], C.rby[0], Px, Py);
-      }
-    }
-    float d1 = dseq[0], d2 = dseq[1];
-    if (C.block) {
-      float vn[2];
-      for (int k = 0; k < 2; ++k) {
-        const float dvx = ((X.vx[b] + (-X.w[b]) * C.rby[k]) - X.vx[a])
-            - (-X.w[a]) * C.ray[k];
-        const float dvy = ((X.vy[b] + X.w[b] * C.rbx[k]) - X.vy[a])
-            - X.w[a] * C.rax[k];
-        vn[k] = dot2(dvx, dvy, nx, ny);
-      }
-      block_lcp(vn[0] - C.bias[0], vn[1] - C.bias[1], a1, a2, C.kn[0],
-                C.kn[1], C.k12, C.nmass[0], C.nmass[1], d1, d2);
-    }
-    const float s = d1 + d2;
-    const float Px = s * nx, Py = s * ny;
-    X.vx[a] = X.vx[a] - C.imA * Px;
-    X.vy[a] = X.vy[a] - C.imA * Py;
-    X.vx[b] = X.vx[b] + C.imB * Px;
-    X.vy[b] = X.vy[b] + C.imB * Py;
-    const float n1x = d1 * nx, n1y = d1 * ny, n2x = d2 * nx, n2y = d2 * ny;
-    const float dw = cross_vv(C.rax[0], C.ray[0], n1x, n1y)
-        + cross_vv(C.rax[1], C.ray[1], n2x, n2y);
-    const float dwb = cross_vv(C.rbx[0], C.rby[0], n1x, n1y)
-        + cross_vv(C.rbx[1], C.rby[1], n2x, n2y);
-    X.w[a] = X.w[a] - C.iiA * dw;
-    X.w[b] = X.w[b] + C.iiB * dwb;
-    C.imp[0][0] = a1 + d1;
-    C.imp[1][0] = a2 + d2;
-    dm = fmaxf(dm, fmaxf(fabsf(d1), fabsf(d2)));
-  }
-  return dm;
+  g.sync();
+  return group_max(g, dm);
 }
 
 // velocity_solve: vel_iters sweeps; with exit_tol > 0 the world stops after
-// the first sweep whose largest impulse delta is <= exit_tol.
-PHYS_FN void velocity_solve(const SpecF& F, const SpecI& I,
-                            const float* motor_speed, Work& X) {
+// the first sweep whose largest impulse delta is <= exit_tol (the group's
+// max, so every lane of the world leaves together).
+template <unsigned G>
+PHYS_FN void velocity_solve(const Group<G>& g, const SpecF& F, const SpecI& I,
+                            const World<G>& W, WallC (&wc)[MW]) {
   for (int it = 0; it < I.vel_iters; ++it) {
-    const float dm = velocity_sweep(F, I, motor_speed, X);
+    const float dm = velocity_sweep(g, F, I, W, wc);
     if (F.exit_tol > 0.0f && dm <= F.exit_tol) break;
   }
 }
 
-// Steps 7-8 (_position_solve): integrate positions into X.cx/cy/a, then
-// NGS corrections (walls, pairs, then joints: limit, then point). The loop
-// stops after the first iteration that meets b2Island::Solve's exit
-// (contact separation >= -3 * linearSlop and every joint within its slops);
-// that iteration's corrections are kept.
-PHYS_FN void position_solve(const SpecF& F, const SpecI& I, const State& S,
-                            Work& X) {
-  const int n = I.n;
+// Steps 7-8 (_position_solve): integrate positions from the state's poses
+// into W.cx/cy/a, then NGS corrections (walls on every body's lane; pairs,
+// then joints, limit then point, on lane 0). The loop stops after the first
+// iteration that meets b2Island::Solve's exit (contact separation >= -3 *
+// linearSlop and every joint within its slops; a min and an any over the
+// group); that iteration's corrections are kept.
+template <unsigned G>
+PHYS_FN void position_solve(const Group<G>& g, const SpecF& F, const SpecI& I,
+                            const World<G>& W, const WallC (&wc)[MW]) {
+  const int i = g.thread_rank();
   const float dt = F.dt;
-  for (int i = 0; i < n; ++i) {
-    X.cx[i] = S.cx[i] + dt * X.vx[i];
-    X.cy[i] = S.cy[i] + dt * X.vy[i];
-    X.a[i] = S.a[i] + dt * X.w[i];
+  if (i < I.n) {
+    W.cx(i) = W.sx(i) + dt * W.vx(i);
+    W.cy(i) = W.sy(i) + dt * W.vy(i);
+    W.a(i) = W.sa(i) + dt * W.w(i);
   }
   for (int it = 0; it < I.pos_iters; ++it) {
     float minsep = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const float im = X.inv_m[i], ii = X.inv_i[i];
-      for (int wi = 0; wi < I.nw; ++wi) {
-        const WallC& C = X.wc[i][wi];
+    if (i < I.n) {
+      float cx = W.cx(i), cy = W.cy(i), ca = W.a(i);
+      const float im = W.im(i), ii = W.ii(i);
+#pragma unroll
+      for (int wi = 0; wi < MW; ++wi) {
+        if (wi >= I.nw) break;
+        const WallC& C = wc[wi];
         const float nx = F.wall_n[wi][0], ny = F.wall_n[wi][1];
+#pragma unroll
         for (int k = 0; k < 2; ++k) {
           if (!C.touch[k]) continue;     // a zero impulse: no change
           float rx, ry;
-          rot(cosf(X.a[i]), sinf(X.a[i]), C.lpx[k], C.lpy[k], rx, ry);
-          const float ptx = X.cx[i] + rx, pty = X.cy[i] + ry;
+          rot(cosf(ca), sinf(ca), C.lpx[k], C.lpy[k], rx, ry);
+          const float ptx = cx + rx, pty = cy + ry;
           const float sep = ((ptx * nx + pty * ny) - F.wall_off[wi]) - C.rad_sub;
           minsep = fminf(minsep, sep);
           const float Cc = clampf(BAUMGARTE * (sep + LINEAR_SLOP),
                                   -MAX_LINEAR_CORRECTION, 0.0f);
-          const float rbx = ptx - X.cx[i], rby = pty - X.cy[i];
+          const float rbx = ptx - cx, rby = pty - cy;
           const float rn = rbx * ny - rby * nx;
           const float kn = im + ii * (rn * rn);
           const float imp = (-Cc) / fmaxf(kn, 1e-12f);
           const float Px = imp * nx, Py = imp * ny;
-          X.cx[i] = X.cx[i] + im * Px;
-          X.cy[i] = X.cy[i] + im * Py;
-          X.a[i] = X.a[i] + ii * cross_vv(rbx, rby, Px, Py);
+          cx = cx + im * Px;
+          cy = cy + im * Py;
+          ca = ca + ii * cross_vv(rbx, rby, Px, Py);
         }
       }
+      W.cx(i) = cx;
+      W.cy(i) = cy;
+      W.a(i) = ca;
     }
-    for (int p = 0; p < I.np; ++p) {
-      const PairC& C = X.pc[p];
-      const int ia = I.pair_a[p], ib = I.pair_b[p];
-      for (int k = 0; k < 2; ++k) {
-        if (!C.touch[k]) continue;
-        const float csA = cosf(X.a[ia]), snA = sinf(X.a[ia]);
-        const float csB = cosf(X.a[ib]), snB = sinf(X.a[ib]);
-        float nx, ny, ptx, pty, sep, rx, ry;
-        if (C.mtype == 0) {
-          rot(csB, snB, C.lpsx[0], C.lpsy[0], rx, ry);
-          const float pax = X.cx[ia], pay = X.cy[ia];
-          const float pbx = X.cx[ib] + rx, pby = X.cy[ib] + ry;
-          const float dx = pbx - pax, dy = pby - pay;
-          const float dist = sqrtf(dx * dx + dy * dy);
-          const float dd = fmaxf(dist, 1e-9f);
-          nx = dist > 1e-9f ? dx / dd : 0.0f;
-          ny = dist > 1e-9f ? dy / dd : 1.0f;
-          sep = dist - C.rad_sub;
-          ptx = 0.5f * (pax + pbx);
-          pty = 0.5f * (pay + pby);
-        } else {
-          // face on A (mtype 1) or on B (mtype 2); the clip point is on
-          // the other body
-          const bool fa = C.mtype == 1;
-          const float cf = fa ? csA : csB, sf = fa ? snA : snB;
-          const float co = fa ? csB : csA, so = fa ? snB : snA;
-          const int bf = fa ? ia : ib, bo = fa ? ib : ia;
-          float fnx, fny, plx, ply;
-          rot(cf, sf, C.lnx, C.lny, fnx, fny);
-          rot(cf, sf, C.lppx, C.lppy, plx, ply);
-          plx = X.cx[bf] + plx;
-          ply = X.cy[bf] + ply;
-          rot(co, so, C.lpsx[k], C.lpsy[k], rx, ry);
-          ptx = X.cx[bo] + rx;
-          pty = X.cy[bo] + ry;
-          sep = dot2(ptx - plx, pty - ply, fnx, fny) - C.rad_sub;
-          nx = fa ? fnx : -fnx;
-          ny = fa ? fny : -fny;
-        }
-        minsep = fminf(minsep, sep);
-        const float Cc = clampf(BAUMGARTE * (sep + LINEAR_SLOP),
-                                -MAX_LINEAR_CORRECTION, 0.0f);
-        const float rax = ptx - X.cx[ia], ray = pty - X.cy[ia];
-        const float rbx = ptx - X.cx[ib], rby = pty - X.cy[ib];
-        const float rnA = cross_vv(rax, ray, nx, ny);
-        const float rnB = cross_vv(rbx, rby, nx, ny);
-        const float kn = ((X.inv_m[ia] + X.inv_m[ib]) + X.inv_i[ia] * (rnA * rnA))
-            + X.inv_i[ib] * (rnB * rnB);
-        const float imp = (-Cc) / fmaxf(kn, 1e-12f);
-        const float Px = imp * nx, Py = imp * ny;
-        X.cx[ia] = X.cx[ia] - X.inv_m[ia] * Px;
-        X.cy[ia] = X.cy[ia] - X.inv_m[ia] * Py;
-        X.cx[ib] = X.cx[ib] + X.inv_m[ib] * Px;
-        X.cy[ib] = X.cy[ib] + X.inv_m[ib] * Py;
-        X.a[ia] = X.a[ia] - X.inv_i[ia] * cross_vv(rax, ray, Px, Py);
-        X.a[ib] = X.a[ib] + X.inv_i[ib] * cross_vv(rbx, rby, Px, Py);
-      }
-    }
+    g.sync();
     bool jbad = false;
-    for (int j = 0; j < I.jn; ++j) {
-      const JointC& J = X.jc[j];
-      const int pa = I.j_pa[j], ch = I.j_ch[j];
-      const float ang = (X.a[ch] - X.a[pa]) - S.j_ref[j];
-      const float lo = F.j_lower[j], hi = F.j_upper[j];
-      const float c_eq = clampf(ang - lo, -MAX_ANGULAR_CORRECTION,
-                                MAX_ANGULAR_CORRECTION);
-      const float c_lo = clampf((ang - lo) + ANGULAR_SLOP,
-                                -MAX_ANGULAR_CORRECTION, 0.0f);
-      const float c_hi = clampf((ang - hi) - ANGULAR_SLOP, 0.0f,
-                                MAX_ANGULAR_CORRECTION);
-      float Cc = 0.0f, ang_err = 0.0f;
-      if (J.state == 3) { Cc = c_eq; ang_err = fabsf(c_eq); }
-      else if (J.state == 1) { Cc = c_lo; ang_err = lo - ang; }
-      else if (J.state == 2) { Cc = c_hi; ang_err = ang - hi; }
-      const float d = (-J.axmass) * Cc;
-      X.a[pa] = X.a[pa] - J.iA * d;
-      X.a[ch] = X.a[ch] + J.iB * d;
-      float rax, ray, rbx, rby;
-      rot(cosf(X.a[pa]), sinf(X.a[pa]), F.j_anchor_a[j][0] - X.lcx[pa],
-          F.j_anchor_a[j][1] - X.lcy[pa], rax, ray);
-      rot(cosf(X.a[ch]), sinf(X.a[ch]), F.j_anchor_b[j][0] - X.lcx[ch],
-          F.j_anchor_b[j][1] - X.lcy[ch], rbx, rby);
-      const float cvx = ((X.cx[ch] + rbx) - X.cx[pa]) - rax;
-      const float cvy = ((X.cy[ch] + rby) - X.cy[pa]) - ray;
-      const float pos_err = sqrtf(cvx * cvx + cvy * cvy);
-      const float k11 = ((J.mA + J.mB) + J.iA * (ray * ray)) + J.iB * (rby * rby);
-      const float k12 = ((-J.iA) * rax) * ray - (J.iB * rbx) * rby;
-      const float k22 = ((J.mA + J.mB) + J.iA * (rax * rax)) + J.iB * (rbx * rbx);
-      float det = k11 * k22 - k12 * k12;
-      det = fabsf(det) > 1e-12f ? det : 1.0f;
-      const float Px = (-(k22 * cvx - k12 * cvy)) / det;
-      const float Py = (-(k11 * cvy - k12 * cvx)) / det;
-      X.cx[pa] = X.cx[pa] - J.mA * Px;
-      X.cy[pa] = X.cy[pa] - J.mA * Py;
-      X.cx[ch] = X.cx[ch] + J.mB * Px;
-      X.cy[ch] = X.cy[ch] + J.mB * Py;
-      X.a[pa] = X.a[pa] - J.iA * cross_vv(rax, ray, Px, Py);
-      X.a[ch] = X.a[ch] + J.iB * cross_vv(rbx, rby, Px, Py);
-      jbad = jbad || pos_err > LINEAR_SLOP || ang_err > ANGULAR_SLOP;
+    if (i == 0) {
+      for (int p = 0; p < I.np; ++p) {
+        const PairC& C = W.pc[p];
+        const int ia = I.pair_a[p], ib = I.pair_b[p];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (!C.touch[k]) continue;
+          const float csA = cosf(W.a(ia)), snA = sinf(W.a(ia));
+          const float csB = cosf(W.a(ib)), snB = sinf(W.a(ib));
+          float nx, ny, ptx, pty, sep, rx, ry;
+          if (C.mtype == 0) {
+            rot(csB, snB, C.lpsx[0], C.lpsy[0], rx, ry);
+            const float pax = W.cx(ia), pay = W.cy(ia);
+            const float pbx = W.cx(ib) + rx, pby = W.cy(ib) + ry;
+            const float dx = pbx - pax, dy = pby - pay;
+            const float dist = sqrtf(dx * dx + dy * dy);
+            const float dd = fmaxf(dist, 1e-9f);
+            nx = dist > 1e-9f ? dx / dd : 0.0f;
+            ny = dist > 1e-9f ? dy / dd : 1.0f;
+            sep = dist - C.rad_sub;
+            ptx = 0.5f * (pax + pbx);
+            pty = 0.5f * (pay + pby);
+          } else {
+            // face on A (mtype 1) or on B (mtype 2); the clip point is on
+            // the other body
+            const bool fa = C.mtype == 1;
+            const float cf = fa ? csA : csB, sf = fa ? snA : snB;
+            const float co = fa ? csB : csA, so = fa ? snB : snA;
+            const int bf = fa ? ia : ib, bo = fa ? ib : ia;
+            float fnx, fny, plx, ply;
+            rot(cf, sf, C.lnx, C.lny, fnx, fny);
+            rot(cf, sf, C.lppx, C.lppy, plx, ply);
+            plx = W.cx(bf) + plx;
+            ply = W.cy(bf) + ply;
+            rot(co, so, C.lpsx[k], C.lpsy[k], rx, ry);
+            ptx = W.cx(bo) + rx;
+            pty = W.cy(bo) + ry;
+            sep = dot2(ptx - plx, pty - ply, fnx, fny) - C.rad_sub;
+            nx = fa ? fnx : -fnx;
+            ny = fa ? fny : -fny;
+          }
+          minsep = fminf(minsep, sep);
+          const float Cc = clampf(BAUMGARTE * (sep + LINEAR_SLOP),
+                                  -MAX_LINEAR_CORRECTION, 0.0f);
+          const float rax = ptx - W.cx(ia), ray = pty - W.cy(ia);
+          const float rbx = ptx - W.cx(ib), rby = pty - W.cy(ib);
+          const float rnA = cross_vv(rax, ray, nx, ny);
+          const float rnB = cross_vv(rbx, rby, nx, ny);
+          const float kn = ((W.im(ia) + W.im(ib)) + W.ii(ia) * (rnA * rnA))
+              + W.ii(ib) * (rnB * rnB);
+          const float imp = (-Cc) / fmaxf(kn, 1e-12f);
+          const float Px = imp * nx, Py = imp * ny;
+          W.cx(ia) = W.cx(ia) - W.im(ia) * Px;
+          W.cy(ia) = W.cy(ia) - W.im(ia) * Py;
+          W.cx(ib) = W.cx(ib) + W.im(ib) * Px;
+          W.cy(ib) = W.cy(ib) + W.im(ib) * Py;
+          W.a(ia) = W.a(ia) - W.ii(ia) * cross_vv(rax, ray, Px, Py);
+          W.a(ib) = W.a(ib) + W.ii(ib) * cross_vv(rbx, rby, Px, Py);
+        }
+      }
+      for (int j = 0; j < I.jn; ++j) {
+        const JointC& J = W.jc[j];
+        const int pa = I.j_pa[j], ch = I.j_ch[j];
+        const float ang = (W.a(ch) - W.a(pa)) - J.ref;
+        const float lo = F.j_lower[j], hi = F.j_upper[j];
+        const float c_eq = clampf(ang - lo, -MAX_ANGULAR_CORRECTION,
+                                  MAX_ANGULAR_CORRECTION);
+        const float c_lo = clampf((ang - lo) + ANGULAR_SLOP,
+                                  -MAX_ANGULAR_CORRECTION, 0.0f);
+        const float c_hi = clampf((ang - hi) - ANGULAR_SLOP, 0.0f,
+                                  MAX_ANGULAR_CORRECTION);
+        float Cc = 0.0f, ang_err = 0.0f;
+        if (J.state == 3) { Cc = c_eq; ang_err = fabsf(c_eq); }
+        else if (J.state == 1) { Cc = c_lo; ang_err = lo - ang; }
+        else if (J.state == 2) { Cc = c_hi; ang_err = ang - hi; }
+        const float d = (-J.axmass) * Cc;
+        const float apa = W.a(pa) - J.iA * d;
+        const float ach = W.a(ch) + J.iB * d;
+        float rax, ray, rbx, rby;
+        rot(cosf(apa), sinf(apa), F.j_anchor_a[j][0] - W.lcx(pa),
+            F.j_anchor_a[j][1] - W.lcy(pa), rax, ray);
+        rot(cosf(ach), sinf(ach), F.j_anchor_b[j][0] - W.lcx(ch),
+            F.j_anchor_b[j][1] - W.lcy(ch), rbx, rby);
+        const float cvx = ((W.cx(ch) + rbx) - W.cx(pa)) - rax;
+        const float cvy = ((W.cy(ch) + rby) - W.cy(pa)) - ray;
+        const float pos_err = sqrtf(cvx * cvx + cvy * cvy);
+        const float k11 = ((J.mA + J.mB) + J.iA * (ray * ray)) + J.iB * (rby * rby);
+        const float k12 = ((-J.iA) * rax) * ray - (J.iB * rbx) * rby;
+        const float k22 = ((J.mA + J.mB) + J.iA * (rax * rax)) + J.iB * (rbx * rbx);
+        float det = k11 * k22 - k12 * k12;
+        det = fabsf(det) > 1e-12f ? det : 1.0f;
+        const float Px = (-(k22 * cvx - k12 * cvy)) / det;
+        const float Py = (-(k11 * cvy - k12 * cvx)) / det;
+        W.cx(pa) = W.cx(pa) - J.mA * Px;
+        W.cy(pa) = W.cy(pa) - J.mA * Py;
+        W.cx(ch) = W.cx(ch) + J.mB * Px;
+        W.cy(ch) = W.cy(ch) + J.mB * Py;
+        W.a(pa) = apa - J.iA * cross_vv(rax, ray, Px, Py);
+        W.a(ch) = ach + J.iB * cross_vv(rbx, rby, Px, Py);
+        jbad = jbad || pos_err > LINEAR_SLOP || ang_err > ANGULAR_SLOP;
+      }
     }
-    if (minsep >= MIN_SEP_OK && !jbad) break;
+    g.sync();
+    minsep = group_min(g, minsep);
+    if (minsep >= MIN_SEP_OK && !g.any(jbad)) break;
   }
 }
 
 // Steps 9-10 (_finalize): island sleeping (min-label propagation over joints
-// and touching pairs, label_rounds Jacobi rounds) and the state writeback.
-PHYS_FN void finalize(const SpecF& F, const SpecI& I, const bool* motor_changed,
-                      State& S, Work& X) {
-  const int n = I.n;
+// and touching pairs, label_rounds Jacobi rounds, each lane relabelling its
+// own body) and the state writeback: each lane its body and walls, pairs by
+// pair index (joint carries are already in place).
+template <unsigned G>
+PHYS_FN void finalize(const Group<G>& g, const SpecF& F, const SpecI& I,
+                      const World<G>& W, Own& o, WallC (&wc)[MW]) {
+  const int i = g.thread_rank(), n = I.n;
   if (I.allow_sleep) {
-    bool forced[MB];
-    int label[MB], nxt[MB];
-    for (int i = 0; i < n; ++i) { forced[i] = false; label[i] = i; }
-    for (int j = 0; j < I.jn; ++j)
-      if (motor_changed[j]) forced[I.j_pa[j]] = forced[I.j_ch[j]] = true;
+    if (i < n) W.label(i) = i;
+    g.sync();
     for (int r = 0; r < I.label_rounds; ++r) {
-      for (int i = 0; i < n; ++i) nxt[i] = label[i];
-      for (int j = 0; j < I.jn; ++j) {
-        const int pa = I.j_pa[j], ch = I.j_ch[j];
-        nxt[pa] = label[ch] < nxt[pa] ? label[ch] : nxt[pa];
-        nxt[ch] = label[pa] < nxt[ch] ? label[pa] : nxt[ch];
+      int nxt = 0;
+      if (i < n) {
+        nxt = W.label(i);
+        for (int j = 0; j < I.jn; ++j) {
+          const int pa = I.j_pa[j], ch = I.j_ch[j];
+          if (pa == i) { const int l = W.label(ch); nxt = l < nxt ? l : nxt; }
+          if (ch == i) { const int l = W.label(pa); nxt = l < nxt ? l : nxt; }
+        }
+        for (int p = 0; p < I.np; ++p) {
+          const PairC& C = W.pc[p];
+          if (!(C.touch[0] || C.touch[1])) continue;
+          const int a = I.pair_a[p], b = I.pair_b[p];
+          if (a == i) { const int l = W.label(b); nxt = l < nxt ? l : nxt; }
+          if (b == i) { const int l = W.label(a); nxt = l < nxt ? l : nxt; }
+        }
       }
-      for (int p = 0; p < I.np; ++p) {
-        const PairC& C = X.pc[p];
-        if (!(C.touch[0] || C.touch[1])) continue;
-        const int a = I.pair_a[p], b = I.pair_b[p];
-        nxt[a] = label[b] < nxt[a] ? label[b] : nxt[a];
-        nxt[b] = label[a] < nxt[b] ? label[a] : nxt[b];
-      }
-      for (int i = 0; i < n; ++i) label[i] = nxt[i];
+      g.sync();
+      if (i < n) W.label(i) = nxt;
+      g.sync();
     }
-    for (int i = 0; i < n; ++i) {
-      const bool slow = (X.vx[i] * X.vx[i] + X.vy[i] * X.vy[i]) <= LIN_SLEEP_TOL_SQ
-          && X.w[i] * X.w[i] <= ANG_SLEEP_TOL_SQ;
-      S.sleep[i] = slow && !forced[i] ? S.sleep[i] + F.dt : 0.0f;
+    if (i < n) {
+      bool forced = false;
+      for (int j = 0; j < I.jn; ++j)
+        if (W.jc[j].mchg && (I.j_pa[j] == i || I.j_ch[j] == i)) forced = true;
+      const float vx = W.vx(i), vy = W.vy(i), w = W.w(i);
+      const bool slow = (vx * vx + vy * vy) <= LIN_SLEEP_TOL_SQ
+          && w * w <= ANG_SLEEP_TOL_SQ;
+      W.sleep(i) = slow && !forced ? W.sleep(i) + F.dt : 0.0f;
     }
-    for (int i = 0; i < n; ++i) {
+    g.sync();
+    if (i < n) {
       float isl = INFINITY;
+      const int li = W.label(i);
       for (int k = 0; k < n; ++k)
-        if (label[k] == label[i]) isl = fminf(isl, S.sleep[k]);
+        if (W.label(k) == li) isl = fminf(isl, W.sleep(k));
       if (isl >= TIME_TO_SLEEP) {   // asleep: velocities 0, poses kept
-        X.vx[i] = X.vy[i] = X.w[i] = 0.0f;
-        X.cx[i] = S.cx[i];
-        X.cy[i] = S.cy[i];
-        X.a[i] = S.a[i];
+        W.vx(i) = W.vy(i) = W.w(i) = 0.0f;
+        W.cx(i) = W.sx(i);
+        W.cy(i) = W.sy(i);
+        W.a(i) = W.sa(i);
       }
     }
   }
-  for (int i = 0; i < n; ++i) {
-    S.cx[i] = X.cx[i]; S.cy[i] = X.cy[i]; S.a[i] = X.a[i];
-    S.vx[i] = X.vx[i]; S.vy[i] = X.vy[i]; S.w[i] = X.w[i];
-    for (int wi = 0; wi < I.nw; ++wi) {
-      const WallC& C = X.wc[i][wi];
+  if (i < n) {
+    W.sx(i) = W.cx(i); W.sy(i) = W.cy(i); W.sa(i) = W.a(i);
+    o.vx = W.vx(i); o.vy = W.vy(i); o.w = W.w(i);
+#pragma unroll
+    for (int wi = 0; wi < MW; ++wi) {
+      if (wi >= I.nw) break;
+      WallC& C = wc[wi];
+#pragma unroll
       for (int k = 0; k < 2; ++k) {
-        S.wc_imp[i][wi][k][0] = C.touch[k] ? C.imp[k][0] : 0.0f;
-        S.wc_imp[i][wi][k][1] = C.touch[k] ? C.imp[k][1] : 0.0f;
-        S.wc_id[i][wi][k] = C.touch[k] ? C.ids[k] : -1;
+        C.imp[k][0] = C.touch[k] ? C.imp[k][0] : 0.0f;
+        C.imp[k][1] = C.touch[k] ? C.imp[k][1] : 0.0f;
+        C.ids[k] = C.touch[k] ? C.ids[k] : -1;
       }
     }
   }
-  for (int p = 0; p < I.np; ++p) {
-    const PairC& C = X.pc[p];
+  for (int p = i; p < I.np; p += G) {
+    PairC& C = W.pc[p];
+#pragma unroll
     for (int k = 0; k < 2; ++k) {
-      S.pc_imp[p][k][0] = C.touch[k] ? C.imp[k][0] : 0.0f;
-      S.pc_imp[p][k][1] = C.touch[k] ? C.imp[k][1] : 0.0f;
-      S.pc_id[p][k] = C.touch[k] ? C.ids[k] : -1;
+      C.imp[k][0] = C.touch[k] ? C.imp[k][0] : 0.0f;
+      C.imp[k][1] = C.touch[k] ? C.imp[k][1] : 0.0f;
+      C.ids[k] = C.touch[k] ? C.ids[k] : -1;
     }
   }
-  for (int j = 0; j < I.nj; ++j) {
-    S.j_imp[j][0] = X.j_imp[j][0];
-    S.j_imp[j][1] = X.j_imp[j][1];
-    S.j_mot[j] = X.j_mot[j];
-    S.j_lim[j] = X.j_lim[j];
-    S.j_state[j] = X.jc[j].state;
-  }
+  g.sync();
 }
 
-// One env step (step_world_motor): substeps x the whole pipeline at motor
-// speeds ms (J,). X.inv_m/inv_i/lcx/lcy must hold body_constants.
-PHYS_FN void step(const SpecF& F, const SpecI& I, const float* ms, State& S,
-                  Work& X) {
-  bool motor_changed[MJ];
-  for (int j = 0; j < I.nj; ++j)
-    motor_changed[j] = ms[j] != S.prev_motor[j] && I.j_valid[j];
-  for (int s = 0; s < I.substeps; ++s) {
-    presolve(F, I, S, X);
-    warm_start(F, I, X);
-    velocity_solve(F, I, ms, X);
-    position_solve(F, I, S, X);
-    finalize(F, I, motor_changed, S, X);
+// One env step (step_world_motor): substeps x the whole pipeline at the
+// motor speeds in the joint records' ms. W.im/ii/lcx/lcy must hold
+// body_constants.
+template <unsigned G>
+PHYS_FN void step(const Group<G>& g, const SpecF& F, const SpecI& I,
+                  const World<G>& W, Own& o, WallC (&wc)[MW]) {
+  const int i = g.thread_rank();
+  for (int j = i; j < I.nj; j += G) {
+    JointC& J = W.jc[j];
+    J.mchg = J.ms != J.prev_motor && I.j_valid[j];
   }
-  for (int j = 0; j < I.nj; ++j) S.prev_motor[j] = ms[j];
+  g.sync();
+  for (int s = 0; s < I.substeps; ++s) {
+    presolve(g, F, I, W, o, wc);
+    warm_start(g, F, I, W, wc);
+    velocity_solve(g, F, I, W, wc);
+    position_solve(g, F, I, W, wc);
+    finalize(g, F, I, W, o, wc);
+  }
+  for (int j = i; j < I.nj; j += G) W.jc[j].prev_motor = W.jc[j].ms;
+  g.sync();
 }
 
 }  // namespace phys
+
+// The shared layout constants, which engine/mega.py mirrors and checks in
+// each library that includes this header: body arrays, words of a pair
+// record and of a joint record.
+extern "C" void phys_layout(int* body_arrays, int* pair_words,
+                            int* joint_words) {
+  *body_arrays = phys::BODY_ARRAYS;
+  *pair_words = phys::PAIR_WORDS;
+  *joint_words = phys::JOINT_WORDS;
+}

@@ -5,9 +5,10 @@ The port of boxlcd_tpu/engine/pallas_solver.py (`make_batched_solver` and
 `make_substep_solver`, whose pl.pallas_call runs the velocity iterations,
 or the velocity iterations plus position integration and NGS, for the whole
 world batch in one program). One CUDA kernel, templated on `with_position`,
-serves both: one thread per world runs csrc/physics_stages.cuh's
-velocity_solve (and position_solve) on that world's rows of the
-SolveBundle, the stages the rollout megakernel runs too.
+serves both: one group of lanes per world (one lane per body, at
+mega.launch_geometry) runs csrc/physics_stages.cuh's velocity_solve (and
+position_solve) on that world's rows of the SolveBundle, the stages the
+rollout megakernel runs too.
 
 - `make_batched_solver(spec)` -> velocity_solver(bundle) -> bundle'
 - `make_substep_solver(spec)` -> substep_solver(states, bundle, aux)
@@ -61,9 +62,13 @@ def _lib():
   lib = _build.load('batched_solver')
   sizes_fn = lib.batched_solver_sizes
   if sizes_fn.argtypes is None:
+    mega.check_layout(lib)
     for fn in (lib.batched_velocity_launch, lib.batched_substep_launch):
-      fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p]
+      fn.argtypes = ([ctypes.c_void_p, ctypes.c_long] + [ctypes.c_int] * 5
+                     + [ctypes.c_void_p])
       fn.restype = ctypes.c_int
+    lib.batched_solver_occupancy.argtypes = [ctypes.c_int] * 4
+    lib.batched_solver_occupancy.restype = ctypes.c_int
     sizes_fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     sizes_fn.restype = None
     nf, ni, nptrs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -131,9 +136,17 @@ class _Solver:
     self._bundle_specs, self._position_specs = _field_specs(spec)
     self._dev = {}
 
-  def _launch(self, kind, b: SolveBundle, position):
-    """Check every input, allocate the outputs, launch; returns the bundle
-    with the new carry and, with `position`, the new (c, a)."""
+  def occupancy(self, B: int, threads: int | None = None) -> int:
+    """Resident blocks per SM of this hook's kernel at
+    mega.launch_geometry(spec, B, threads)."""
+    geo = mega.launch_geometry(self.spec, B, threads)
+    return _lib().batched_solver_occupancy(int(self.with_position), geo.group,
+                                           geo.worlds, geo.shared)
+
+  def _launch(self, kind, b: SolveBundle, position, threads=None):
+    """Check every input, allocate the outputs, launch at
+    mega.launch_geometry(spec, B, threads); returns the bundle with the new
+    carry and, with `position`, the new (c, a)."""
     B = b.v.shape[0] if b.v.dim() else -1
     dev = b.v.device
     fields = {f: (getattr(b, f), *s) for f, s in self._bundle_specs.items()}
@@ -161,7 +174,10 @@ class _Solver:
       fn = (lib.batched_substep_launch if position is not None
             else lib.batched_velocity_launch)
       arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-      err = fn(ctypes.cast(arr, ctypes.c_void_p), B,
+      spec = self.spec
+      geo = mega.launch_geometry(spec, B, threads)
+      err = fn(ctypes.cast(arr, ctypes.c_void_p), B, geo.group, geo.worlds,
+               len(spec.pair_a), len(spec.j_parent), geo.shared,
                torch.cuda.current_stream(dev).cuda_stream)
       if err != 0:
         raise RuntimeError(f'batched_solver ({kind}) launch failed: '
@@ -173,6 +189,8 @@ class _Solver:
 class VelocitySolver(_Solver):
   """velocity_solver(bundle) -> bundle' for physics.step_world_batch."""
 
+  with_position = False
+
   def __call__(self, b: SolveBundle) -> SolveBundle:
     if b.v.is_cuda:
       return self.kernel_solve(b)
@@ -181,14 +199,16 @@ class VelocitySolver(_Solver):
   def plain_solve(self, b: SolveBundle) -> SolveBundle:
     return plain_velocity_solver(self.spec, b)
 
-  def kernel_solve(self, b: SolveBundle) -> SolveBundle:
+  def kernel_solve(self, b: SolveBundle, threads=None) -> SolveBundle:
     """Launch csrc/batched_solver.cu (velocity only) on the current stream."""
-    return self._launch('velocity', b, None)[0]
+    return self._launch('velocity', b, None, threads)[0]
 
 
 class SubstepSolver(_Solver):
   """substep_solver(states, bundle, aux) -> (bundle', c, a) for
   physics.step_world_batch."""
+
+  with_position = True
 
   def __call__(self, states, b: SolveBundle, aux):
     if b.v.is_cuda:
@@ -198,7 +218,7 @@ class SubstepSolver(_Solver):
   def plain_solve(self, states, b: SolveBundle, aux):
     return plain_substep_solver(self.spec, states, b, aux)
 
-  def kernel_solve(self, states, b: SolveBundle, aux):
+  def kernel_solve(self, states, b: SolveBundle, aux, threads=None):
     """Launch csrc/batched_solver.cu (velocity + position) on the current
     stream."""
     wm, pm = aux.wallm, aux.pairm
@@ -207,7 +227,7 @@ class SubstepSolver(_Solver):
         'w_lps': wm.lps, 'w_rad': wm.rad_sub, 'w_touch': wm.touch,
         'p_lps': pm.lps, 'p_ln': pm.ln, 'p_lpp': pm.lpp, 'p_rad': pm.rad_sub,
         'p_mtype': pm.mtype, 'p_touch': pm.touch}
-    return self._launch('substep', b, position)
+    return self._launch('substep', b, position, threads)
 
 
 _SOLVERS = {}

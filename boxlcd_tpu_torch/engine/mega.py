@@ -4,9 +4,10 @@ wrapper.
 The port of boxlcd_tpu/engine/mega.py (`make_rollout`, whose pl.pallas_call
 runs the whole substep pipeline for T steps per world tile). The kernel runs
 every substep of engine/physics.py / engine/collision.py for T steps, one
-thread per world: velocity integration and damping, the wall and body-pair
-narrowphase (circle-circle, polygon-circle, polygon-polygon SAT + clip, with
-RANDOM shapes chosen per world), warm-start matching by contact id,
+group of lanes per world (one lane per body; `launch_geometry`): velocity
+integration and damping, the wall and body-pair narrowphase (circle-circle,
+polygon-circle, polygon-polygon SAT + clip, with RANDOM shapes chosen per
+world), warm-start matching by contact id,
 constraint init, `vel_iters` Gauss-Seidel sweeps (revolute joints with motor
 and limits, the 2-point block LCP), position integration and `pos_iters` NGS
 with Box2D's per-world exit, island sleeping, and the warm-start writeback.
@@ -16,7 +17,10 @@ worlds minor), the layout render/traj_raster.py reads.
 One build serves every env: the spec goes in as two small tables
 (`spec_tables`, laid out as csrc/physics_stages.cuh's SpecF / SpecI) under
 compile-time maxima that cover the env zoo; a spec beyond them raises
-ValueError.
+ValueError. `launch_geometry` sizes the launch from the spec and the batch:
+the group size, worlds a block, blocks and the dynamic shared memory of the
+worlds' shared state (csrc/physics_stages.cuh's World layout, mirrored
+here); the solver kernels (engine/cuda_solver.py) use it too.
 
 `solver_exit_tol`: the kernel, like the plain version (physics.velocity_solve),
 stops each world's velocity iterations on its own once a sweep's largest
@@ -31,6 +35,7 @@ raises. LAUNCHES counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +49,62 @@ LAUNCHES = 0
 
 # csrc/physics_stages.cuh's compile-time maxima
 MAX_BODIES, MAX_JOINTS, MAX_PAIRS, MAX_WALLS, MAX_VERTS = 18, 16, 15, 4, 8
+
+# csrc/physics_stages.cuh's shared layout of one world: BODY_ARRAYS arrays of
+# G words, a PAIR_WORDS record per pair slot, a JOINT_WORDS record per joint
+# slot (the launch functions check the sizes this gives against their own)
+BODY_ARRAYS, PAIR_WORDS, JOINT_WORDS = 18, 48, 18
+GROUP_SIZES = (4, 8, 16, 32)       # the group sizes the kernels are built for
+BLOCK_THREADS = (128, 64, 32)      # the block sizes launch_geometry picks from
+NUM_SMS = 132                      # H100 SXM
+MAX_SHARED_BYTES = 232448          # a block's shared memory on the H100
+
+
+class Geometry(NamedTuple):
+  """One launch of a physics kernel: `group` lanes a world, `worlds` a block,
+  `blocks` blocks, `shared` bytes of dynamic shared memory a block."""
+  group: int
+  worlds: int
+  blocks: int
+  shared: int
+
+  @property
+  def threads(self):
+    return self.group * self.worlds
+
+
+def group_size(spec: WorldSpec) -> int:
+  """Lanes a world: the spec's bodies rounded up to a power of two, >= 4."""
+  return max(4, 1 << max(0, spec.n - 1).bit_length())
+
+
+def world_words(G: int, n_pairs: int, n_joints: int) -> int:
+  """4-byte words of one world's shared state (physics_stages.cuh's
+  world_words): padded to G mod 32, so that the worlds of a warp start G
+  banks apart."""
+  w = BODY_ARRAYS * G + PAIR_WORDS * n_pairs + JOINT_WORDS * n_joints
+  return w + ((G % 32) - w % 32) % 32
+
+
+def launch_geometry(spec: WorldSpec, B: int, threads: int | None = None):
+  """The launch of a physics kernel for B worlds of `spec`. Blocks hold the
+  most threads of BLOCK_THREADS that still give each of the card's SMs a
+  block (else the fewest), so a batch of a few thousand worlds covers every
+  SM; `threads` fixes the block size instead (chip_smoke.py times the
+  others)."""
+  G = group_size(spec)
+  if G > GROUP_SIZES[-1]:
+    raise ValueError(f'physics kernels: {spec.n} bodies, at most '
+                     f'{GROUP_SIZES[-1]}')
+  if threads is None:
+    fits = [t for t in BLOCK_THREADS if t >= G and -(-B * G // t) >= NUM_SMS]
+    threads = fits[0] if fits else max(G, BLOCK_THREADS[-1])
+  if threads % G or threads > BLOCK_THREADS[0]:
+    raise ValueError(f'{threads} threads a block do not hold groups of {G}')
+  worlds = threads // G
+  shared = worlds * world_words(G, len(spec.pair_a), len(spec.j_parent)) * 4
+  return Geometry(G, worlds, -(-B // worlds), shared)
+
 
 # WorldState fields the kernel updates, in csrc/mega_rollout.cu's Ptrs order
 _STATE_FIELDS = ('c', 'a', 'v', 'w', 'sleep_time', 'wc_imp', 'wc_id',
@@ -140,16 +201,31 @@ def device_tables(tables, sizes, device, cache):
   return cache[key]
 
 
+def check_layout(lib):
+  """Raise RuntimeError unless the built kernels' shared layout is the one
+  BODY_ARRAYS, PAIR_WORDS and JOINT_WORDS mirror."""
+  got = [ctypes.c_int() for _ in range(3)]
+  lib.phys_layout(*(ctypes.byref(x) for x in got))
+  got = tuple(x.value for x in got)
+  if got != (BODY_ARRAYS, PAIR_WORDS, JOINT_WORDS):
+    raise RuntimeError(f'the kernels\' shared layout is {got}, engine/mega.py '
+                       f'mirrors {(BODY_ARRAYS, PAIR_WORDS, JOINT_WORDS)}')
+
+
 def _lib():
   lib = _build.load('mega_rollout')
   fn = lib.mega_rollout_launch
   if fn.argtypes is None:
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
-                   ctypes.c_void_p]
+    check_layout(lib)
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_long]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.mega_rollout_occupancy.argtypes = [ctypes.c_int] * 3
+    lib.mega_rollout_occupancy.restype = ctypes.c_int
     nf, ni = ctypes.c_int(), ctypes.c_int()
     lib.mega_table_sizes(ctypes.byref(nf), ctypes.byref(ni))
     fn.table_sizes = (nf.value, ni.value)
+    fn.occupancy = lib.mega_rollout_occupancy
   return fn
 
 
@@ -220,8 +296,16 @@ class Rollout:
     if not ms.is_contiguous():
       raise ValueError('motor_speed must be contiguous')
 
-  def kernel_rollout(self, states: WorldState, motor_speed):
-    """Launch csrc/mega_rollout.cu on the current stream."""
+  def occupancy(self, B: int, threads: int | None = None) -> int:
+    """Resident blocks per SM at launch_geometry(spec, B, threads)
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    geo = launch_geometry(self.spec, B, threads)
+    return _lib().occupancy(geo.group, geo.worlds, geo.shared)
+
+  def kernel_rollout(self, states: WorldState, motor_speed,
+                     threads: int | None = None):
+    """Launch csrc/mega_rollout.cu on the current stream, at
+    launch_geometry(spec, B, threads)."""
     global LAUNCHES
     self._check(states, motor_speed)
     spec = self.spec
@@ -237,7 +321,9 @@ class Rollout:
     ptrs = [ftab, itab, states.is_circle, *(out[f] for f in _STATE_FIELDS),
             motor_speed, stream]
     arr = (ctypes.c_void_p * len(ptrs))(*(t.data_ptr() for t in ptrs))
-    err = fn(ctypes.cast(arr, ctypes.c_void_p), B, self.T,
+    geo = launch_geometry(spec, B, threads)
+    err = fn(ctypes.cast(arr, ctypes.c_void_p), B, self.T, geo.group,
+             geo.worlds, len(spec.pair_a), len(spec.j_parent), geo.shared,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
       raise RuntimeError(f'mega_rollout launch failed: cudaError {err}')

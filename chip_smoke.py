@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel under boxlcd_tpu_torch/csrc/ with nvcc, in
-     parallel, printing each build's seconds and ptxas' register, stack and
-     spill lines;
+     parallel, printing each build's seconds and, per kernel instantiation
+     (the physics kernels' group sizes), ptxas' registers, stack and spills;
   3. lcd raster vs plain: the per-frame LCD raster kernel against its plain
      torch version, bit for bit, on Urchin, LuxoCube, Object3 and Bounce2 at
      B = 1000, 4096 and 262144, from reset states after 3 plain-physics steps
@@ -20,20 +20,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      = 262144 frames, and at the main path's shape (100 x 4000), where it is
      then timed;
   5. megakernel vs plain: tests/test_mega.py's six envs at B = 1024, T = 34
-     (4 random-action steps, then 30 zero-action steps) within that file's
-     per-field median and tail bounds, poses at t = 0 and 2 within 1e-4, the
-     sleep share within 0.02; then the same at the main path's shape
-     (Urchin, 4000 worlds x 100 random-action steps), where it is timed;
+     (4 random-action steps, then 30 zero-action steps) at per-field median
+     0 and within that file's tail bounds, poses at t = 0 and 2 within 1e-4,
+     the sleep share within 0.02; then the same (median within bounds) at
+     the main path's shape (Urchin, 4000 worlds x 100 random-action steps),
+     where it is timed, beside its launch geometry, occupancy and its times
+     at each block size launch_geometry picks from;
   6. reference: the per-step core on the card against the CPU, and the
      megakernel path against the per-step path on the card from one seed
      (equal actions, t = 0 frames equal bit for bit);
   7. solver kernel vs plain: one step_world_batch with each solver hook
      (velocity, substep) against the plain step on the six envs of phase 5
      and Urchin at solver_exit_tol = 1e-4, at B = 1024 from
-     tests/test_pallas.py's warm states, within its bounds, and the same
-     states with every 2-point contact's second point dropped; then T = 34
-     rollouts with the substep kernel against phase 5's plain rollouts,
-     within tests/test_mega.py's bounds;
+     tests/test_pallas.py's warm states, equal bit for bit, and the same
+     states with every 2-point contact's second point dropped (equal too);
+     then T = 34 rollouts with the substep kernel against phase 5's plain
+     rollouts, within tests/test_mega.py's bounds;
   8. main path: `fill_barrels` for Urchin (vel_iters 8, pos_iters 4, 4000
      worlds = 4 barrels in one dispatch, 100 steps, 16x32 LCD) through the
      megakernel path, with every kernel's launch count set to 0 just before
@@ -47,10 +49,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   10. solver path: bench.py's BENCH_SOLVER=sub line, Urchin, 4096 worlds x
      100 steps of step_world_batch with the substep kernel, then
      Env.observe, launches counted as in phase 8 (substep kernel 100 x
-     substeps, lcd raster 100, no other); the final state within
-     tests/test_mega.py's Urchin bounds of the plain path; the busy share,
-     the per-layer times of one step, and both solver kernels' times beside
-     their bounds and plain versions;
+     substeps, lcd raster 100, no other); the final state equal to the
+     plain path's bit for bit; the busy share, the per-layer times of one
+     step, and both solver kernels' times beside their bounds and plain
+     versions, their launch geometry, occupancy and block-size times;
   11. VecEnv: Luxo in body mode, 8 envs, ep_len + 1 steps (autoreset runs),
      then LuxoCube in cube mode; numpy observations, the lcd raster at least
      once a step, timeouts on ep_len.
@@ -62,8 +64,10 @@ no result. --out writes the measurements as JSON as well.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -134,17 +138,49 @@ def card_phase():
   return smi.splitlines()[0]
 
 
+def ptxas_kernels(nvcc_log):
+  """Per kernel instantiation in an `nvcc -Xptxas -v` log: {name:
+  {'registers', 'stack', 'spill_stores', 'spill_loads'}}, with a template's
+  arguments in the name (the physics kernels' group size G, and whether the
+  solver kernel runs the position solve)."""
+  out, name = {}, None
+  for line in nvcc_log.splitlines():
+    m = re.search(r"Compiling entry function '(\w+)'", line)
+    if m:
+      mangled = m.group(1)
+      k = re.search(r'\d+([a-z_]+_kernel)(?:I((?:L[jb]\d+E)+)E)?', mangled)
+      name = k.group(1) if k else mangled
+      if k and k.group(2):
+        args = re.findall(r'L([jb])(\d+)E', k.group(2))
+        name += '<' + ', '.join(
+            f'G={v}' if t == 'j' else f'position={bool(int(v))}'
+            for t, v in args) + '>'
+      out[name] = {}
+    elif name is not None:
+      m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                    r'(\d+) bytes spill loads', line)
+      if m:
+        out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+      m = re.search(r'Used (\d+) registers', line)
+      if m:
+        out[name]['registers'] = int(m.group(1))
+  return out
+
+
 def build_phase():
   t0 = time.time()
   info = _build.build_all()
   log(f'[build] {sorted(info)} in {time.time() - t0:.2f} s')
+  kernels = {}
   for name, rec in sorted(info.items()):
     log(f'[build] {name}: nvcc {rec["seconds"]:.2f} s')
-    for line in rec['log'].splitlines():
-      if 'spill' in line or 'ptxas' in line and (
-          'registers' in line or 'stack' in line or 'Compiling' in line):
-        log(f'[build] {name}: {line.strip()}')
-  return {n: r['seconds'] for n, r in info.items()}
+    for kern, r in ptxas_kernels(rec['log']).items():
+      kernels[kern] = r
+      log(f'[build] {name}: {kern}: {r.get("registers")} registers, '
+          f'{r.get("stack")} B stack, {r.get("spill_stores")} B spill stores, '
+          f'{r.get("spill_loads")} B spill loads')
+  return {n: r['seconds'] for n, r in info.items()}, kernels
 
 
 def _env(name, dev, **G):
@@ -460,10 +496,12 @@ def traj_phase(dev):
               frames=n_frames, times=t)
 
 
-def _per_world_check(label, B, bounds, new, ref, worst, failures):
+def _per_world_check(label, B, bounds, new, ref, worst, failures,
+                     exact_median=False):
   """Hold every field of tests/test_mega.py's FIELDS to its per-world median
-  and tail bounds of ref; adds each field's worst world to `worst` and each
-  breach to `failures`. Returns the per-field 'median/tail' strings."""
+  and tail bounds of ref (with exact_median, the median must be 0); adds
+  each field's worst world to `worst` and each breach to `failures`.
+  Returns the per-field 'median/tail' strings."""
   med_b, tail_at, tail_frac = bounds
   msg = []
   for f in MEGA_FIELDS:
@@ -472,7 +510,7 @@ def _per_world_check(label, B, bounds, new, ref, worst, failures):
     med, tail = float(err.median()), float((err > tail_at).float().mean())
     worst[f] = max(worst.get(f, 0.0), float(err.max()))
     msg.append(f'{f} {med:.1e}/{tail:.3f}')
-    if med >= med_b or tail >= tail_frac:
+    if med >= med_b or tail >= tail_frac or (exact_median and med != 0):
       failures.append(f'{label} {f}: median {med:.2e}, tail {tail:.3f}')
   if not torch.isfinite(new.c).all():
     failures.append(f'{label}: non-finite poses')
@@ -480,13 +518,14 @@ def _per_world_check(label, B, bounds, new, ref, worst, failures):
 
 
 def _mega_check(label, B, bounds, new, traj, ref, ref_traj, worst,
-                failures, sleep_min=None, tag='mega'):
+                failures, sleep_min=None, tag='mega', exact_median=False):
   """Hold one rollout to tests/test_mega.py's bounds of its plain version:
-  per-world median and tail error of every field, poses at t = 0 and 2
-  within 1e-4, sleep share within 0.02 (and the plain version's above
-  sleep_min where given). Adds each field's worst world to `worst` and each
-  breach to `failures`."""
-  msg = _per_world_check(label, B, bounds, new, ref, worst, failures)
+  per-world median (0 with exact_median) and tail error of every field,
+  poses at t = 0 and 2 within 1e-4, sleep share within 0.02 (and the plain
+  version's above sleep_min where given). Adds each field's worst world to
+  `worst` and each breach to `failures`."""
+  msg = _per_world_check(label, B, bounds, new, ref, worst, failures,
+                         exact_median)
   pose_err = max(float((traj[k][t] - ref_traj[k][t]).abs().max())
                  for k in ('c', 'a') for t in (0, 2))
   if pose_err >= 1e-4:
@@ -524,7 +563,7 @@ def mega_phase(dev):
     ref, ref_traj = rollout.plain_rollout(st, ms)
     torch.cuda.synchronize()
     _mega_check(f'{name} B={B} T={T}', B, bounds, new, traj, ref, ref_traj,
-                worst, failures, sleep_min)
+                worst, failures, sleep_min, exact_median=True)
     refs[name] = (st, ms, ref, ref_traj)
 
   # the main path's shape: Urchin, 4000 worlds, 100 steps
@@ -560,7 +599,70 @@ def mega_phase(dev):
   log(f'[mega] {MAIN_ENV} B={MAIN_BATCH} T={T}: kernel {t["ms"]:.3f} ms '
       f'device (events); plain {plain_wall:.1f} ms a call (host clock); '
       f'bound {bound:.6f} ms ({by}, {flops:.3e} flops)')
-  return dict(max_abs_err=max(worst.values()), worst=worst, times=t), refs
+  geometry = block_sizes(
+      'mega', MAIN_BATCH,
+      lambda B, th: mega.launch_geometry(env.spec, B, th), rollout.occupancy,
+      lambda th: (rollout.kernel_rollout(st, ms, threads=th)[1]['stream'],),
+      3)
+  geometry['iterations'] = iteration_breakdown(
+      'mega', env.spec, MAIN_BATCH,
+      lambda sp: mega.make_rollout(sp, T).kernel_rollout(st, ms), 3)
+  for name in ('CrabCube',):          # the largest group: 32 lanes a world
+    spec = _env(name, dev).spec
+    g = mega.launch_geometry(spec, MEGA_CHECK_B)
+    occ = mega.make_rollout(spec, 2).occupancy(MEGA_CHECK_B)
+    log(f'[mega] geometry {name} B={MEGA_CHECK_B}: {_geo(g, occ)}')
+  return dict(max_abs_err=max(worst.values()), worst=worst, times=t,
+              geometry=geometry), refs
+
+
+def _geo(g, occ):
+  return (f'G={g.group} lanes a world, {g.worlds} worlds a block, '
+          f'{g.blocks} blocks of {g.threads} threads, {g.shared} B dynamic '
+          f'shared a block; {occ} blocks per SM resident '
+          f'({occ * g.threads // 32} warps; cudaOccupancyMaxActiveBlocks'
+          f'PerMultiprocessor)')
+
+
+def block_sizes(tag, B, geometry, occupancy, launch, n):
+  """A physics kernel at launch_geometry's chosen block size and at each
+  size it picks from: the geometry, the resident blocks per SM and the
+  device ms a call (events, n calls); each output equal to the chosen
+  size's, bit for bit (the block size moves no world's arithmetic)."""
+  ref = launch(None)
+  out = {}
+  for th in (None, *mega.BLOCK_THREADS):
+    g = geometry(B, th)
+    occ = occupancy(B, th)
+    got = launch(th)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+    if not same:
+      raise RuntimeError(f'{tag}: {th} threads a block change the output')
+    ms = events_ms(lambda: launch(th), n)
+    key = 'chosen' if th is None else f'{th} threads'
+    out[key] = dict(group=g.group, worlds=g.worlds, blocks=g.blocks,
+                    threads=g.threads, shared=g.shared, blocks_per_sm=occ,
+                    ms=ms)
+    log(f'[{tag}] geometry at B={B}, {key}: {_geo(g, occ)}; {ms:.4f} ms '
+        f'device (events)')
+  return out
+
+
+def iteration_breakdown(tag, spec, B, launch, n):
+  """Where a physics kernel's time goes: its device ms a call (events, n
+  calls) with the spec's velocity and position iterations, and with either
+  or both set to 0 on the same inputs. With both 0 the megakernel runs
+  integration, narrowphase, init, warm start and sleeping only, and the
+  solver kernels only load their inputs and store their outputs."""
+  out = {}
+  for vi, pi in ((spec.vel_iters, spec.pos_iters), (spec.vel_iters, 0),
+                 (0, spec.pos_iters), (0, 0)):
+    cut = dataclasses.replace(spec, vel_iters=vi, pos_iters=pi)
+    out[f'{vi}/{pi}'] = ms = events_ms(lambda: launch(cut), n)
+    log(f'[{tag}] B={B} at vel_iters/pos_iters {vi}/{pi}: {ms:.4f} ms '
+        f'device (events)')
+  return out
 
 
 def reference_phase(dev):
@@ -836,10 +938,10 @@ def solver_phase(dev, mega_refs):
   """The solver kernel against its plain version for both hooks: one
   step_world_batch with each hook against the plain step on
   tests/test_mega.py's six envs (and Urchin at solver_exit_tol = 1e-4) at
-  B = 1024 from test_pallas's warm states, within test_pallas's bounds
-  (velocity hook 1e-4 on v, w, c, a; substep hook 2e-3 on its ten fields),
-  and the substep kernel against the plain solves on the same states with
-  every 2-point contact's second velocity point dropped (2e-3); then a
+  B = 1024 from test_pallas's warm states, equal bit for bit (velocity hook
+  on v, w, c, a; substep hook on its ten fields), and the substep kernel
+  against the plain solves on the same states with every 2-point contact's
+  second velocity point dropped (equal too); then a
   T = 34 rollout (4 random-action steps, 30 zero-action steps) with
   the substep kernel against the mega phase's plain rollout of the same
   states and motor speeds, within test_mega's bounds."""
@@ -885,9 +987,11 @@ def solver_phase(dev, mega_refs):
         f'Box2D\'s rule in these states): substep kernel vs plain solves max '
         f'err {ed:.2e} (v, w, wc, pc, c, a)')
     es['dropped_points'] = ed
-    if max(ev.values()) >= 1e-4:
+    # the kernels keep the plain op order in every world: equal bit for bit
+    # (tests/test_pallas.py's bounds, 1e-4 and 2e-3, are far looser)
+    if max(ev.values()) != 0:
       failures.append(f'{label}: velocity hook {ev}')
-    if max(es.values()) >= 2e-3:
+    if max(es.values()) != 0:
       failures.append(f'{label}: substep hook {es}')
     worst['velocity'] = max(worst['velocity'], *ev.values())
     worst['substep'] = max(worst['substep'], *es.values())
@@ -947,8 +1051,8 @@ def solver_path_phase(dev, smi):
   4096 worlds, 100 steps of step_world_batch with the substep kernel, each
   followed by Env.observe, whose three parts are summed and consumed. Every
   launch count is set to 0 just before and read just after; the final state
-  is held to a plain 100-step rollout from the same states and actions with
-  test_mega's Urchin bounds. Then the busy share of 5 profiled steps, the
+  must equal a plain 100-step rollout's from the same states and actions
+  bit for bit. Then the busy share of 5 profiled steps, the
   per-layer times of one step with the kernel and with the plain solves,
   and both kernels' times beside their bounds."""
   env = _env(MAIN_ENV, dev)
@@ -993,12 +1097,14 @@ def solver_path_phase(dev, smi):
   msg = _per_world_check(f'{MAIN_ENV} B={B} T={T}', B,
                          MEGA_BOUNDS[MAIN_ENV][:3], final, ref, worst,
                          failures)
+  unequal = [f for f in physics.WorldState._fields
+             if not torch.equal(getattr(final, f), getattr(ref, f))]
   log(f'[solver-path] final state vs the plain path ({plain_wall:.2f} s): '
       f'median/tail per field: {", ".join(msg)}; worst world '
-      f'{max(worst.values()):.2e}')
-  if failures:
-    raise RuntimeError('solver path outside test_mega\'s Urchin bounds:\n'
-                       + '\n'.join(failures))
+      f'{max(worst.values()):.2e}; fields not bit-equal: {unequal}')
+  if failures or unequal:
+    raise RuntimeError('solver path differs from the plain path:\n'
+                       + '\n'.join(failures + unequal))
 
   # busy share of 5 steps under the profiler
   acts_p = [torch.profiler.ProfilerActivity.CPU,
@@ -1052,6 +1158,23 @@ def solver_path_phase(dev, smi):
     log(f'[solver-path] layer {name}: {t["wall_ms"]:.3f} ms with dispatch, '
         f'device {_fmt(t["device_ms"])}{events} ({B} worlds, {smi})')
 
+  geometry = {
+      'substep': block_sizes(
+          'solver-path substep', B,
+          lambda B, th: mega.launch_geometry(spec, B, th),
+          solver.occupancy,
+          lambda th: (lambda o: (*o[0][:7], o[1], o[2]))(
+              solver.kernel_solve(st, bundle, aux, threads=th)), 20),
+      'velocity': block_sizes(
+          'solver-path velocity', B,
+          lambda B, th: mega.launch_geometry(spec, B, th),
+          vel.occupancy,
+          lambda th: tuple(vel.kernel_solve(bundle, threads=th)[:7]), 20)}
+  geometry['substep']['iterations'] = iteration_breakdown(
+      'solver-path substep', spec, B,
+      lambda sp: cuda_solver.make_substep_solver(sp).kernel_solve(st, bundle,
+                                                                  aux), 20)
+
   # both kernels beside their bounds and plain versions
   pos = [st.c, st.a, st.j_ref, aux.lc, aux.wallm.lps, aux.wallm.rad_sub,
          aux.wallm.touch, aux.pairm.lps, aux.pairm.ln, aux.pairm.lpp,
@@ -1073,7 +1196,7 @@ def solver_path_phase(dev, smi):
         f'{flops:.3e} flops, {B} worlds)')
   return dict(launches=launches, wall_s=wall, env_steps_per_s=B * T / wall,
               plain_wall_s=plain_wall, busy_share=busy, layers=layers,
-              kernels=kernels, worst=worst)
+              kernels=kernels, worst=worst, geometry=geometry)
 
 
 def vec_env_phase(dev, smi):
@@ -1143,7 +1266,7 @@ def main():
   dev = torch.device('cuda')
   t_start = time.time()
   smi = card_phase()
-  build = build_phase()
+  build, ptxas = build_phase()
   phase_s = {}
 
   def run(name, fn, *a):
@@ -1202,7 +1325,7 @@ def main():
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
+        build_s=build, ptxas=ptxas, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
         reference=ref, solver=sol, main=main_run, per_step=step_run,
         solver_path=sol_path, vec_env=vec, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))

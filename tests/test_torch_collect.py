@@ -32,6 +32,10 @@ from boxlcd_tpu_torch.engine import physics
 from boxlcd_tpu_torch.render import traj_raster
 from boxlcd_tpu_torch.utils import AttrDict
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 B = 32
 T = 8
 # the module (the package's `collect` name is the entry-point function)
@@ -88,7 +92,7 @@ def test_fill_barrels_layout_loads_in_jax_dataset(tmp_path):
   jenv = boxlcd_tpu.env_map['Dropbox']({'ep_len': T})
   G = AttrDict(logdir=tmp_path)
   gen = torch.Generator().manual_seed(0)
-  fill_barrels(env, 1, 'train', G, gen, batch_size=250)
+  fill_barrels(env, 1, 'train', G, gen, batch_size=500)   # two dispatches
   files = sorted((tmp_path / 'train').glob('*.barrel.npz'))
   assert len(files) == 1 and files[0].name.endswith(f'-00000-{T}.barrel.npz')
   # boxlcd_tpu/data/collect.py's npz branch: action plus one entry per obs key
@@ -171,7 +175,7 @@ def test_mega_path_barrels_load_in_jax_dataset(tmp_path, monkeypatch):
   env = boxlcd_tpu_torch.env_map['Dropbox']({'ep_len': T}, device='cpu')
   jenv = boxlcd_tpu.env_map['Dropbox']({'ep_len': T})
   fill_barrels(env, 1, 'train', AttrDict(logdir=tmp_path),
-               torch.Generator().manual_seed(0), batch_size=250)
+               torch.Generator().manual_seed(0), batch_size=500)
   files = sorted((tmp_path / 'train').glob('*.barrel.npz'))
   assert len(files) == 1
   with np.load(files[0]) as z:

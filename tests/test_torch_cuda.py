@@ -20,6 +20,10 @@ from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
 from boxlcd_tpu_torch.research.wrappers import VecEnv
 from boxlcd_tpu_torch.utils import AttrDict
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 ITERS = {'vel_iters': 8, 'pos_iters': 4}
 
@@ -239,3 +243,92 @@ def test_vec_env_on_the_card_launches_the_raster(cuda_device):
   assert isinstance(obs['lcd'], np.ndarray) and obs['lcd'].shape == (
       8, env.lcd_h, env.lcd_w)
   assert rew.shape == (8,) and len(infos) == 8
+
+
+# The redesigned physics kernels (a group of lanes per world): tests/
+# test_mega.py's six envs and CrabCube (32 lanes a world, the largest group),
+# on ragged batches that leave a block part empty.
+REDESIGN_ENVS = ['Urchin', 'Luxo', 'LuxoCube', 'UrchinBall', 'Bounce2',
+                 'Object3', 'CrabCube']
+RAGGED = [1, 33, 1000]
+
+
+@pytest.mark.parametrize('B', RAGGED)
+@pytest.mark.parametrize('env_name', REDESIGN_ENVS)
+def test_megakernel_groups_match_plain(cuda_device, env_name, B):
+  med_bound, tail_at, tail_frac = MEGA_BOUNDS.get(env_name,
+                                                  MEGA_BOUNDS['Urchin'])
+  env = boxlcd_tpu_torch.env_map[env_name](ITERS, device=cuda_device)
+  T = 6
+  st, ms = _mega_inputs(env, B, T, cuda_device)
+  rollout = mega.make_rollout(env.spec, T)
+  before = mega.LAUNCHES
+  new, traj = rollout.kernel_rollout(st, ms)
+  torch.cuda.synchronize()
+  assert mega.LAUNCHES == before + 1
+  ref, ref_traj = rollout.plain_rollout(st, ms)
+  for f in MEGA_FIELDS:
+    err = (getattr(ref, f).float() - getattr(new, f).float()).abs()
+    err = err.reshape(B, -1).max(1).values
+    assert float(err.median()) < med_bound, f
+    assert float((err > tail_at).float().mean()) < tail_frac or B == 1, f
+  for t in (0, 2):
+    assert float((traj['c'][t] - ref_traj['c'][t]).abs().max()) < 1e-4
+    assert float((traj['a'][t] - ref_traj['a'][t]).abs().max()) < 1e-4
+  assert torch.equal(traj['c'][-1], new.c) and torch.equal(traj['a'][-1], new.a)
+
+
+@pytest.mark.parametrize('hook', ['velocity', 'substep'])
+@pytest.mark.parametrize('B', RAGGED)
+@pytest.mark.parametrize('env_name', REDESIGN_ENVS)
+def test_solver_kernel_groups_equal_plain(cuda_device, env_name, B, hook):
+  """The solver kernels against the plain solves on the same bundle: equal
+  bit for bit (the kernels keep the plain op order in every world)."""
+  env = boxlcd_tpu_torch.env_map[env_name](ITERS, device=cuda_device)
+  spec = env.spec
+  gen = torch.Generator(device=cuda_device).manual_seed(2)
+  st = Env.reset(env, gen, B)
+  act = torch.rand((B, env.act_size), generator=gen,
+                   device=cuda_device) * 2 - 1
+  for _ in range(3):
+    st = physics.step_world_batch(spec, st, act)
+  K = physics.consts(spec, cuda_device)
+  b, aux = physics._presolve(spec, K, st, physics.motor_speeds(spec, act))
+  if hook == 'velocity':
+    solver = cuda_solver.make_batched_solver(spec)
+    got, want = (solver.kernel_solve(b),), (solver.plain_solve(b),)
+  else:
+    solver = cuda_solver.make_substep_solver(spec)
+    got, want = solver.kernel_solve(st, b, aux), solver.plain_solve(st, b, aux)
+  torch.cuda.synchronize()
+  for f in ('v', 'w', 'j_imp', 'j_mot', 'j_lim', 'wc', 'pc'):
+    assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+  for g, w in zip(got[1:], want[1:]):
+    assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('threads', [32, 64, 128])
+def test_solver_kernels_at_every_block_size(cuda_device, threads):
+  """The solver path's batch at each block size launch_geometry picks from:
+  equal to the plain solves at every one."""
+  env = boxlcd_tpu_torch.env_map['Urchin'](ITERS, device=cuda_device)
+  spec = env.spec
+  gen = torch.Generator(device=cuda_device).manual_seed(3)
+  st = Env.reset(env, gen, 4096)
+  act = torch.rand((4096, env.act_size), generator=gen,
+                   device=cuda_device) * 2 - 1
+  for _ in range(3):
+    st = physics.step_world_batch(spec, st, act)
+  K = physics.consts(spec, cuda_device)
+  b, aux = physics._presolve(spec, K, st, physics.motor_speeds(spec, act))
+  sub = cuda_solver.make_substep_solver(spec)
+  vel = cuda_solver.make_batched_solver(spec)
+  got = sub.kernel_solve(st, b, aux, threads=threads)
+  want = sub.plain_solve(st, b, aux)
+  got_v = vel.kernel_solve(b, threads=threads)
+  want_v = vel.plain_solve(b)
+  torch.cuda.synchronize()
+  for g, w in zip((*got[0][:7], got[1], got[2], *got_v[:7]),
+                  (*want[0][:7], want[1], want[2], *want_v[:7])):
+    assert torch.equal(g, w)
+  assert sub.occupancy(4096, threads) > 0 and vel.occupancy(4096, threads) > 0

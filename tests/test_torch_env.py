@@ -16,6 +16,10 @@ from boxlcd_tpu.envs.env import Env as JEnv
 from boxlcd_tpu_torch.engine import physics
 from boxlcd_tpu_torch.envs.env import Env
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 B = 24
 
 

@@ -11,12 +11,17 @@
 """
 import numpy as np
 import pytest
+import torch
 
 import boxlcd_tpu
 import boxlcd_tpu_torch
 from boxlcd_tpu_torch.research import wrappers as twrap
 from research import wrappers as jwrap
 from tests.test_torch_vec_env import _step_both, rl_G
+
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
 
 
 def test_vec_env_cube_mode_matches_jax():

@@ -19,6 +19,10 @@ from boxlcd_tpu.envs.env import Env as JEnv
 from boxlcd_tpu_torch.engine import cuda_solver, physics
 from boxlcd_tpu_torch.engine.spec import compile_world
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 
 def _jax_warm(env, B, steps=3):
   spec = env.spec

@@ -20,6 +20,10 @@ from boxlcd_tpu.envs.env import Env
 from boxlcd_tpu_torch.engine import physics
 from boxlcd_tpu_torch.engine.spec import compile_world
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 FIELDS = ['c', 'a', 'v', 'w', 'sleep_time', 'wc_imp', 'j_imp', 'j_mot',
           'j_lim', 'j_state', 'prev_motor', 'pc_imp', 'pc_id']
 # (median, tail threshold, tail fraction): tests/test_mega.py's BOUNDS

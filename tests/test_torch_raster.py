@@ -22,6 +22,10 @@ from boxlcd_tpu.render import raster as jraster
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 
 def pil_polygon(pts, W, H):
   im = Image.new('1', (W, H))

@@ -24,6 +24,10 @@ from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.engine.spec import compile_world
 from boxlcd_tpu_torch.envs.env import Env
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 ITERS = {'vel_iters': 8, 'pos_iters': 4}
 
 

@@ -12,10 +12,15 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import boxlcd_tpu
 import boxlcd_tpu_torch
 from boxlcd_tpu_torch.engine.spec import compile_world
+
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'boxlcd_tpu_torch'

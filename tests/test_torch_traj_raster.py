@@ -18,6 +18,10 @@ from boxlcd_tpu.engine.spec import RANDOM
 from boxlcd_tpu.render import traj_raster as jtraj
 from boxlcd_tpu_torch.render import raster, traj_raster
 
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
+
 T, B = 3, 1024
 
 

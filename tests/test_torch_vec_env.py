@@ -14,6 +14,7 @@ boxlcd_tpu's, on the CPU.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 import boxlcd_tpu
 import boxlcd_tpu_torch
@@ -22,6 +23,10 @@ from boxlcd_tpu_torch.engine import physics
 from boxlcd_tpu_torch.research import wrappers as twrap
 from research import wrappers as jwrap
 from research.define_config import config
+
+# one intra-op thread: the tensors here are small, and where the suite runs
+# its files in parallel processes, more threads only contend for the cores
+torch.set_num_threads(1)
 
 N_ENVS = 4
 
