@@ -44,6 +44,7 @@ from boxlcd_tpu_torch import _build
 from boxlcd_tpu_torch.engine import physics
 from boxlcd_tpu_torch.engine.physics import WorldState
 from boxlcd_tpu_torch.engine.spec import RANDOM, WorldSpec
+from boxlcd_tpu_torch.utils import NUM_SMS
 
 LAUNCHES = 0
 
@@ -56,8 +57,6 @@ MAX_BODIES, MAX_JOINTS, MAX_PAIRS, MAX_WALLS, MAX_VERTS = 18, 16, 15, 4, 8
 BODY_ARRAYS, PAIR_WORDS, JOINT_WORDS = 18, 48, 18
 GROUP_SIZES = (4, 8, 16, 32)       # the group sizes the kernels are built for
 BLOCK_THREADS = (128, 64, 32)      # the block sizes launch_geometry picks from
-NUM_SMS = 132                      # H100 SXM
-MAX_SHARED_BYTES = 232448          # a block's shared memory on the H100
 
 
 class Geometry(NamedTuple):

@@ -16,24 +16,87 @@ bit-comparable on the card.
 For tensors on the CPU the wrapper takes the plain version
 (raster.lcd_rows_plain); for tensors on the card it launches the kernel or
 raises. LAUNCHES counts the kernel's launches.
+
+`launch_geometry` sizes a launch of either raster kernel (this one and
+csrc/traj_raster.cu, which share csrc/lcd_common.cuh's frame core): a tile of
+G lanes per frame, frames a one-warp block, blocks, the dynamic shared memory
+of the frames' body slots, and the compile-time vertex bound NV; the C
+launchers check it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from boxlcd_tpu_torch import _build
-from boxlcd_tpu_torch.engine.geom import MAX_VERTS
 from boxlcd_tpu_torch.engine.spec import WorldSpec
 from boxlcd_tpu_torch.render import raster
+from boxlcd_tpu_torch.utils import MAX_SHARED_BYTES
 
 LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 10 + [ctypes.c_long] + [ctypes.c_int] * 5 + [
-    ctypes.c_float, _P, _P]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [_P, _P]
+
+# csrc/lcd_common.cuh's block of THREADS lanes and body slot: a header of
+# HEAD_WORDS words, then EDGE_ARRAYS arrays of NV words (the launchers check
+# the sizes this gives)
+THREADS, HEAD_WORDS, EDGE_ARRAYS = 32, 4, 6
+VERTEX_BOUNDS = (4, 8)             # the NV the kernels are built for
+
+
+class Geometry(NamedTuple):
+  """One launch of a raster kernel: `lanes` a frame, `frames` a block,
+  `blocks` blocks, `shared` bytes of dynamic shared memory a block, `nv` the
+  vertex bound it is instantiated for."""
+  lanes: int
+  frames: int
+  blocks: int
+  shared: int
+  nv: int
+
+  @property
+  def threads(self):
+    return self.lanes * self.frames
+
+
+def tile_lanes(height: int, nv: int) -> int:
+  """Lanes a frame: H rounded up to a power of two, at most a warp and at
+  least a body's group of nv lanes (the setup's)."""
+  return max(nv, min(32, 1 << max(0, height - 1).bit_length()))
+
+
+def vertex_bound(spec: WorldSpec) -> int:
+  """The kernel's NV for `spec`: the least of VERTEX_BOUNDS that holds its
+  largest vertex count."""
+  most = int(np.max(spec.nverts))
+  for nv in VERTEX_BOUNDS:
+    if most <= nv:
+      return nv
+  raise ValueError(f'{most} polygon vertices: the raster kernels take at '
+                   f'most {VERTEX_BOUNDS[-1]}')
+
+
+def frame_words(n: int, height: int, nv: int) -> int:
+  """4-byte words of one frame's shared memory: its row words padded to 4,
+  then n body slots."""
+  return -(-height // 4) * 4 + n * (HEAD_WORDS + EDGE_ARRAYS * nv)
+
+
+def launch_geometry(spec: WorldSpec, frames: int, height: int) -> Geometry:
+  """The launch of a raster kernel for `frames` frames of `spec` at `height`
+  rows: blocks of one warp, THREADS // G frames each."""
+  nv = vertex_bound(spec)
+  G = tile_lanes(height, nv)
+  words = frame_words(spec.n, height, nv)
+  per = THREADS // G
+  if per * words * 4 > MAX_SHARED_BYTES:
+    raise ValueError(f'{per} frames of {words} words outgrow a block')
+  return Geometry(G, per, -(-frames // per), per * words * 4, nv)
 
 
 def _lib():
@@ -54,12 +117,11 @@ class RasterConsts:
   def __init__(self, spec: WorldSpec, width: int, height: int):
     if not raster.kernel_supported(spec, width, height):
       raise ValueError(f'the row-bitmask raster needs W <= 32, got {width}')
-    if spec.draw_verts.shape[1] > MAX_VERTS:
-      raise ValueError('too many polygon vertices for the kernel')
+    vertex_bound(spec)
     _, tblbits = raster._tables(spec, width, height)
     self.dmax = tblbits.shape[0] - 1
     self.scale = raster._scale(spec, width)
-    self.max_verts = spec.draw_verts.shape[1]
+    self.verts = spec.draw_verts.shape[1]
     self._host = {
         'shape_static': np.ascontiguousarray(spec.shape_static, np.int32),
         'nverts': np.ascontiguousarray(spec.nverts, np.int32),
@@ -105,7 +167,8 @@ class BatchedRender:
                                  self.width, self.height)
 
   def kernel_rows(self, is_circle, c, cosa, sina):
-    """Launch csrc/lcd_raster.cu on the current stream."""
+    """Launch csrc/lcd_raster.cu on the current stream, at
+    launch_geometry(spec, B, H)."""
     global LAUNCHES
     spec = self.spec
     B, N = is_circle.shape if is_circle.dim() == 2 else (-1, -1)
@@ -127,11 +190,12 @@ class BatchedRender:
     out = torch.empty((B, self.height), dtype=torch.int32, device=c.device)
     if B == 0:
       return out
+    geo = launch_geometry(spec, B, self.height)
     stream = torch.cuda.current_stream(c.device).cuda_stream
     err = _lib()(is_circle.data_ptr(), c.data_ptr(), cosa.data_ptr(),
-                 sina.data_ptr(), *K.pointers(c.device), B, N, K.max_verts,
-                 self.height, self.width, K.dmax, K.scale, out.data_ptr(),
-                 stream)
+                 sina.data_ptr(), *K.pointers(c.device), B, N, K.verts,
+                 self.height, self.width, K.dmax, K.scale, geo.nv, geo.lanes,
+                 geo.threads, geo.shared, out.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f'lcd_raster launch failed: cudaError {err}')
     LAUNCHES += 1

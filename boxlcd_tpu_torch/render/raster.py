@@ -381,6 +381,38 @@ def lcd_rows_plain(spec: WorldSpec, is_circle, c, cosa, sina, width: int,
   return torch.where(mask >= 2 ** 31, mask - 2 ** 32, mask).to(torch.int32)
 
 
+def body_row_ranges(spec: WorldSpec, is_circle, c, cosa, sina, width: int,
+                    height: int):
+  """(ylo, yhi), each (B, N) int64: the PIL rows [ylo, yhi] of each body,
+  clipped to the frame (empty where ylo > yhi), by the raster kernels' setup
+  rules (csrc/lcd_common.cuh): a polygon's truncated vertices' y range, a
+  circle's integer bbox rows. Outside them a body's fill is 0, so the
+  kernels skip those rows; nothing on the main path calls this, the tests
+  hold the plain fill to it."""
+  tbl, _ = _tables(spec, width, height)
+  dmax = tbl.shape[0] - 1
+  s = _scale(spec, width)
+  los, his = [], []
+  for b in range(spec.n):
+    kind = int(spec.shape_static[b])
+    lo = hi = None
+    if kind != POLY:
+      _, iy0, _, ih = _circle_bbox(c[:, b, 0], c[:, b, 1],
+                                   float(spec.radius[b]), s, dmax)
+      lo, hi = iy0, iy0 + ih
+    if kind != CIRCLE:
+      _, ivy = _poly_verts_px_batch(spec, c, cosa, sina, s, b)
+      plo, phi = ivy.min(-1).values.long(), ivy.max(-1).values.long()
+      if lo is None:
+        lo, hi = plo, phi
+      else:
+        ic = is_circle[:, b]
+        lo, hi = torch.where(ic, lo, plo), torch.where(ic, hi, phi)
+    los.append(torch.clamp(lo, min=0))
+    his.append(torch.clamp(hi, max=height - 1))
+  return torch.stack(los, 1), torch.stack(his, 1)
+
+
 def unpack_rows(rows, width: int):
   """(B, H) int32 row bitmasks -> (B, H, W) bool."""
   return _unpack_bits(rows.to(torch.int64) & 0xFFFFFFFF, width)

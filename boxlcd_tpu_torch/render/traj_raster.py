@@ -31,7 +31,7 @@ LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 10 + [ctypes.c_long] * 2 + [ctypes.c_int] * 5 + [
-    ctypes.c_float, _P, _P]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [_P, _P]
 
 
 def _lib():
@@ -75,7 +75,8 @@ class TrajRender:
                                  self.width, self.height).view(T, B, -1)
 
   def kernel_rows(self, poses, cosa, sina, is_circle):
-    """Launch csrc/traj_raster.cu on the current stream."""
+    """Launch csrc/traj_raster.cu on the current stream, at
+    cuda_raster.launch_geometry(spec, T * B, H)."""
     global LAUNCHES
     spec = self.spec
     if poses.dim() != 4 or poses.shape[1:3] != (spec.n, 3):
@@ -98,11 +99,12 @@ class TrajRender:
                       device=poses.device)
     if T * B == 0:
       return out
+    geo = cuda_raster.launch_geometry(spec, T * B, self.height)
     stream = torch.cuda.current_stream(poses.device).cuda_stream
     err = _lib()(poses.data_ptr(), cosa.data_ptr(), sina.data_ptr(),
                  is_circle.data_ptr(), *K.pointers(poses.device), T, B, N,
-                 K.max_verts, self.height, self.width, K.dmax, K.scale,
-                 out.data_ptr(), stream)
+                 K.verts, self.height, self.width, K.dmax, K.scale, geo.nv,
+                 geo.lanes, geo.threads, geo.shared, out.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f'traj_raster launch failed: cudaError {err}')
     LAUNCHES += 1

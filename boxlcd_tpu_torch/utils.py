@@ -8,6 +8,7 @@ torch tensors alike:
   - mapto / rmapto      the [-1, 1] <-> physical-bounds mapping (obs contract)
   - sortdict / filtlist / nfiltlist helpers
   - resolve_device      the device rule of the port's entry points
+  - NUM_SMS / MAX_SHARED_BYTES  the card's facts that launch geometry uses
 """
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ import re
 
 import numpy as np
 import torch
+
+NUM_SMS = 132                      # H100 SXM
+MAX_SHARED_BYTES = 232448          # a block's shared memory on the H100
 
 
 def resolve_device(device=None) -> torch.device:

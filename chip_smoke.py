@@ -8,17 +8,21 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. card: name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: every kernel under boxlcd_tpu_torch/csrc/ with nvcc, in
      parallel, printing each build's seconds and, per kernel instantiation
-     (the physics kernels' group sizes), ptxas' registers, stack and spills;
+     (the physics kernels' group sizes, the raster kernels' vertex bound
+     and pose accessor), ptxas' registers, stack and spills;
   3. lcd raster vs plain: the per-frame LCD raster kernel against its plain
-     torch version, bit for bit, on Urchin, LuxoCube, Object3 and Bounce2 at
-     B = 1000, 4096 and 262144, from reset states after 3 plain-physics steps
-     and from random poses that put bodies partly outside the frame; then
-     its times at the tripwire's 16 frames and at 4000+ worlds;
+     torch version, bit for bit, on Urchin, LuxoCube, Object3, Bounce2 and
+     CrabCube (32x32: 18 bodies, the NV = 8 instantiation) at B = 1000,
+     4096 and 262144, from reset states after 3 plain-physics steps and
+     from random poses that put bodies partly outside the frame; then its
+     times at the VecEnv's 8 worlds, the tripwire's 16 frames (beside the
+     launch floor: a one-element launch's time) and at 4000+ worlds, and
+     its launch geometry (one-warp blocks) at 4000 worlds;
   4. traj raster vs plain: the trajectory raster kernel against its plain
      version, bit for bit, on the same envs, from megakernel pose streams
      and from random poses across the frame's edges, up to T x B = 64 x 4096
      = 262144 frames, and at the main path's shape (100 x 4000), where it is
-     then timed;
+     then timed, with its launch geometry;
   5. megakernel vs plain: tests/test_mega.py's six envs at B = 1024, T = 34
      (4 random-action steps, then 30 zero-action steps) at per-field median
      0 and within that file's tail bounds, poses at t = 0 and 2 within 1e-4,
@@ -91,10 +95,11 @@ from boxlcd_tpu_torch.utils import AttrDict
 
 ITERS = {'vel_iters': 8, 'pos_iters': 4}     # bench.py's headline setting
 CHECK_ENVS = [('Urchin', 32, 16), ('LuxoCube', 24, 16), ('Object3', 16, 16),
-              ('Bounce2', 16, 16)]
+              ('Bounce2', 16, 16), ('CrabCube', 32, 32)]
 CHECK_BATCHES = [1000, 4096, 262144]
 MAIN_ENV, MAIN_BATCH, MAIN_BARRELS = 'Urchin', 4000, 4
 TRIPWIRE_FRAMES = 16                        # the main path's lcd raster call
+VEC_BATCH = 8                               # the VecEnv's lcd raster call
 TRAJ_SHAPES = [(2, 1000), (64, 4096)]       # (T, B), up to 262144 frames
 PER_STEP_BATCH, PER_STEP_T = 1000, 25       # the per-step path, cut in depth
 MEGA_CHECK_B, MEGA_CHECK_T = 1024, 34       # tests/test_mega.py's shape
@@ -138,22 +143,48 @@ def card_phase():
   return smi.splitlines()[0]
 
 
+def _template_args(mangled):
+  """The template arguments of a mangled kernel instantiation's `I...E`
+  list, in order: ('j', G) unsigned (the physics kernels' group size), ('b',
+  0 | 1) bool (the solver kernel's position solve), ('i', NV) int (the
+  raster kernels' vertex bound), ('class', name) a type (the raster kernels'
+  pose accessor)."""
+  args = []
+  while mangled and mangled[0] != 'E':
+    m = re.match(r'L([ijb])(\d+)E', mangled)
+    if m:
+      args.append((m.group(1), int(m.group(2))))
+      mangled = mangled[m.end():]
+      continue
+    m = re.match(r'(\d+)', mangled)
+    if not m:
+      break
+    n = int(m.group(1))
+    args.append(('class', mangled[m.end():m.end() + n]))
+    mangled = mangled[m.end() + n:]
+  return args
+
+
+_ARG_NAMES = {'j': 'G={}', 'b': 'position={}', 'i': 'NV={}', 'class': '{}'}
+
+
 def ptxas_kernels(nvcc_log):
   """Per kernel instantiation in an `nvcc -Xptxas -v` log: {name:
   {'registers', 'stack', 'spill_stores', 'spill_loads'}}, with a template's
-  arguments in the name (the physics kernels' group size G, and whether the
-  solver kernel runs the position solve)."""
+  arguments in the name (the physics kernels' group size G and whether the
+  solver kernel runs the position solve; the raster kernels' vertex bound NV
+  and pose accessor)."""
   out, name = {}, None
   for line in nvcc_log.splitlines():
     m = re.search(r"Compiling entry function '(\w+)'", line)
     if m:
       mangled = m.group(1)
-      k = re.search(r'\d+([a-z_]+_kernel)(?:I((?:L[jb]\d+E)+)E)?', mangled)
+      k = re.search(r'\d+([a-z_]+_kernel)(I)?', mangled)
       name = k.group(1) if k else mangled
       if k and k.group(2):
-        args = re.findall(r'L([jb])(\d+)E', k.group(2))
+        args = _template_args(mangled[k.end():])
         name += '<' + ', '.join(
-            f'G={v}' if t == 'j' else f'position={bool(int(v))}'
+            _ARG_NAMES[t].format(bool(v) if t == 'b' else v)
             for t, v in args) + '>'
       out[name] = {}
     elif name is not None:
@@ -323,11 +354,13 @@ def kernel_phase(dev):
     raise RuntimeError(f'lcd_raster: {mismatches} frames differ from the '
                        f'plain version')
 
-  # times at the main path's shape, and at 4096 and 262144 worlds
+  # times at the VecEnv's and the main path's shapes, and at 4096 and
+  # 262144 worlds
   env = _env(MAIN_ENV, dev)
   render = cuda_raster.make_batched_render(env.spec, env.lcd_w, env.lcd_h)
   times = {}
-  for B in (TRIPWIRE_FRAMES, MAIN_BATCH, 4096, max(CHECK_BATCHES)):
+  floor = launch_floor_ms(dev)
+  for B in (VEC_BATCH, TRIPWIRE_FRAMES, MAIN_BATCH, 4096, max(CHECK_BATCHES)):
     ic, c, a = _stepped_poses(env, B, gen)
     cosa, sina = torch.cos(a), torch.sin(a)
     kern = lambda: render.kernel_rows(ic, c, cosa, sina)
@@ -337,26 +370,48 @@ def kernel_phase(dev):
     t = times[B] = dict(
         ms=events_ms(kern, 100), prof_ms=profiled_ms(kern, 100),
         wall_ms=wall_ms(kern, 100), plain_prof_ms=profiled_ms(plain, 5),
-        plain_wall_ms=wall_ms(plain, 5), bound_ms=bound, bound_by=by)
+        plain_wall_ms=wall_ms(plain, 5), bound_ms=bound, bound_by=by,
+        launch_floor_ms=floor)
     # the plain version is many small launches: its device time is the sum
     # of their durations (profiler), or its wall time where that is unseen
     t['plain_ms'] = t['plain_prof_ms'] or t['plain_wall_ms']
     log(f'[kernel] {MAIN_ENV} B={B}: kernel {t["ms"]:.4f} ms device (events),'
         f' {_fmt(t["prof_ms"])} (profiler), {t["wall_ms"]:.4f} ms a call with '
-        f'dispatch; plain {_fmt(t["plain_prof_ms"])} device (profiler), '
+        f'dispatch; launch floor {floor:.4f} ms (a one-element launch, '
+        f'events); plain {_fmt(t["plain_prof_ms"])} device (profiler), '
         f'{t["plain_wall_ms"]:.3f} ms a call; bound {bound:.6f} ms ({by})')
+  geometry = raster_geometry('kernel', env.spec, MAIN_BATCH, env.lcd_h,
+                             times[MAIN_BATCH]['ms'])
   return dict(mismatches=mismatches, max_abs_err=max_err, frames=n_frames,
-              times=times)
+              times=times, geometry=geometry)
+
+
+def launch_floor_ms(dev):
+  """Device ms of a trivial one-element launch (CUDA events, 100 calls):
+  the card's floor under a kernel's time at a tiny batch."""
+  one = torch.zeros(1, device=dev)
+  return events_ms(lambda: one.add_(1), 100)
+
+
+def raster_geometry(tag, spec, frames, height, ms):
+  """A raster kernel's launch geometry at `frames` frames, logged beside
+  the device ms a call measured there."""
+  g = cuda_raster.launch_geometry(spec, frames, height)
+  log(f'[{tag}] geometry at {frames} frames: {g.lanes} lanes a frame '
+      f'(NV={g.nv}), {g.frames} frames a block, {g.blocks} blocks of '
+      f'{g.threads} threads, {g.shared} B dynamic shared a block; '
+      f'{ms:.4f} ms device (events)')
+  return dict(g._asdict(), threads=g.threads, ms=ms)
 
 
 def traj_bound(spec, is_circle, T, height, consts):
   """Least time of one trajectory-raster call: (bound ms, 'bytes' |
-  'operations'). Bytes: the poses (x, y, angle), cos and sin of T frames,
-  is_circle once per world and the spec tables read once, the (T, B, H)
-  int32 rows written once. Operations: raster_bound's per-frame count, T
-  times."""
+  'operations'). Bytes: x, y, cos and sin of T frames (the stream's angle
+  row is not read: cos and sin stand for it), is_circle once per world and
+  the spec tables read once, the (T, B, H) int32 rows written once.
+  Operations: raster_bound's per-frame count, T times."""
   B, N = is_circle.shape
-  nbytes = (T * B * N * (12 + 8) + B * N + T * B * height * 4
+  nbytes = (T * B * N * (8 + 8) + B * N + T * B * height * 4
             + sum(t.numel() * t.element_size() for t in consts.values()))
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = T * raster_flops(spec, is_circle, height) / FP32_FLOPS * 1e3
@@ -492,8 +547,10 @@ def traj_phase(dev):
       f'device (events), {_fmt(t["prof_ms"])} (profiler); plain '
       f'{_fmt(t["plain_prof_ms"])} device (profiler), '
       f'{t["plain_wall_ms"]:.2f} ms a call; bound {bound:.6f} ms ({by})')
+  geometry = raster_geometry('traj', env.spec, T * MAIN_BATCH, env.lcd_h,
+                             t['ms'])
   return dict(mismatches=mismatches, max_abs_err=0 if not mismatches else 1,
-              frames=n_frames, times=t)
+              frames=n_frames, times=t, geometry=geometry)
 
 
 def _per_world_check(label, B, bounds, new, ref, worst, failures,

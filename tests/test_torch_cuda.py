@@ -332,3 +332,33 @@ def test_solver_kernels_at_every_block_size(cuda_device, threads):
                   (*want[0][:7], want[1], want[2], *want_v[:7])):
     assert torch.equal(g, w)
   assert sub.occupancy(4096, threads) > 0 and vel.occupancy(4096, threads) > 0
+
+
+# The redesigned raster kernels (a tile of lanes per frame, setup once per
+# body, rows only where a body is): CrabCube cut to 32 wide (18 bodies, one
+# of 6 vertices: the NV = 8 instantiation) at 32 rows, and at 16 rows (more
+# bodies than a tile has lanes).
+@pytest.mark.parametrize('width,height', [(32, 32), (32, 16)])
+def test_rasters_on_crabcube_equal_plain(cuda_device, width, height):
+  env = boxlcd_tpu_torch.env_map['CrabCube'](ITERS, device=cuda_device)
+  ic, c, a = _poses(env, 3000, 4, cuda_device)
+  cosa, sina = torch.cos(a), torch.sin(a)
+  render = cuda_raster.make_batched_render(env.spec, width, height)
+  assert cuda_raster.launch_geometry(env.spec, 3000, height).nv == 8
+  got = render.kernel_rows(ic, c, cosa, sina)
+  want = raster.lcd_rows_plain(env.spec, ic, c, cosa, sina, width, height)
+  torch.cuda.synchronize()
+  assert int((got != want).sum()) == 0
+  st, ms = _mega_inputs(env, 1024, 6, cuda_device)
+  _, traj = mega.make_rollout(env.spec, 6)(st, ms)
+  shift = torch.zeros_like(traj['stream'])
+  shift[:, :, 0, 1::2] = 0.5 * float(env.spec.width)
+  poses = (traj['stream'] + shift).contiguous()
+  cosa, sina = torch.cos(poses[:, :, 2]), torch.sin(poses[:, :, 2])
+  trender = traj_raster.make_traj_render(env.spec, width, height)
+  got = trender.kernel_rows(poses, cosa, sina, st.is_circle)
+  want = trender.plain_rows(poses, cosa, sina, st.is_circle)
+  torch.cuda.synchronize()
+  assert int((got != want).sum()) == 0
+  frames = raster.unpack_rows(got, width)
+  assert not frames.all() and frames.any()

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 import boxlcd_tpu_torch
+from boxlcd_tpu_torch import utils
 from boxlcd_tpu_torch.engine import mega
 
 ENVS = sorted(boxlcd_tpu_torch.env_map)
@@ -36,10 +37,10 @@ def test_launch_geometry_fits_the_spec_and_the_card(env_name):
     assert geo.blocks * geo.worlds >= B > (geo.blocks - 1) * geo.worlds
     words = mega.world_words(G, len(spec.pair_a), len(spec.j_parent))
     assert geo.shared == geo.worlds * words * 4
-    assert geo.shared + static <= mega.MAX_SHARED_BYTES
+    assert geo.shared + static <= utils.MAX_SHARED_BYTES
     # a batch that can give every SM a block does
-    if B * G >= 32 * mega.NUM_SMS:
-      assert geo.blocks >= mega.NUM_SMS, (B, geo)
+    if B * G >= 32 * utils.NUM_SMS:
+      assert geo.blocks >= utils.NUM_SMS, (B, geo)
 
 
 @pytest.mark.parametrize('env_name,B,want', [

@@ -225,3 +225,52 @@ def test_batched_render_on_cpu_takes_plain_path():
   assert got.dtype == torch.bool and torch.equal(got, want)
   with pytest.raises(ValueError):
     render.kernel_rows(st.is_circle, st.c, torch.cos(st.a), torch.sin(st.a))
+
+
+@pytest.mark.parametrize('env_name,width,height', [
+    ('Urchin', 32, 16), ('LuxoCube', 24, 16), ('Object3', 16, 16),
+    ('Bounce2', 16, 16), ('CrabCube', 32, 32),
+])
+def test_body_fill_is_blank_outside_its_row_range(env_name, width, height):
+  """The raster kernels compute a body's rows only inside the range
+  raster.body_row_ranges gives: each body rendered alone through
+  lcd_rows_plain must be blank outside it. Poses cross every edge of the
+  frame, the bottom PIL row's gymax clip included."""
+  env = boxlcd_tpu_torch.env_map[env_name](device='cpu')
+  spec = env.spec
+  B = 96
+  gen = torch.Generator().manual_seed(3)
+  st = Env.reset(env, gen, B)
+  s = raster._scale(spec, width)
+  u = torch.rand((B, spec.n, 3), generator=gen)
+  # uniform over 1.5x the frame's extent in world units
+  c = torch.stack([(u[..., 0] * 1.5 - 0.25) * (width / s),
+                   (u[..., 1] * 1.5 - 0.25) * (height / s)], -1)
+  c[:B // 4] = st.c[:B // 4]                   # a quarter at reset poses
+  a = (u[..., 2] * 2 - 1) * np.pi
+  cosa, sina = torch.cos(a), torch.sin(a)
+  ylo, yhi = raster.body_row_ranges(spec, st.is_circle, c, cosa, sina,
+                                    width, height)
+  full = (1 << width) - 1
+  pil_y = torch.arange(height - 1, -1, -1)     # image row r is PIL row H-1-r
+  dmax = raster._tables(spec, width, height)[0].shape[0] - 1
+  past_bottom = empty = 0
+  for b in range(spec.n):
+    alone = torch.full_like(c, -1000.0)        # every other body off-frame
+    alone[:, b] = c[:, b]
+    rows = raster.lcd_rows_plain(spec, st.is_circle, alone, cosa, sina,
+                                 width, height)
+    fill = (rows.long() & 0xFFFFFFFF) ^ full   # (B, H) bits the body draws
+    inside = ((pil_y >= ylo[:, b, None]) & (pil_y <= yhi[:, b, None]))
+    assert int((fill[~inside] != 0).sum()) == 0, b
+    empty += int((ylo[:, b] > yhi[:, b]).sum())
+    # bodies that run past PIL row H-1 (for polygons, the gymax clip) and
+    # draw on it
+    _, iy0, _, ih = raster._circle_bbox(c[:, b, 0], c[:, b, 1],
+                                        float(spec.radius[b]), s, dmax)
+    _, ivy = raster._poly_verts_px_batch(spec, c, cosa, sina, s, b)
+    circ = (st.is_circle[:, b] if int(spec.shape_static[b]) == 2
+            else torch.full((B,), int(spec.shape_static[b]) == 0))
+    top = torch.where(circ, iy0 + ih, ivy.max(-1).values.long())
+    past_bottom += int(((top >= height) & (fill[:, 0] != 0)).sum())
+  assert past_bottom > 0 and empty > 0
