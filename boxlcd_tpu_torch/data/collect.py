@@ -15,7 +15,10 @@ the finished barrels.
 Barrel layout matches the reference exactly (research/data.py:50-77): npz
 `{timestamp}-{index}-{ep_len}.barrel.npz` with `action` [1000, T, act] plus
 one entry per obs key [1000, T, ...], recorded as (o_t, a_t) pairs where the
-final action is meaningless.
+final action is meaningless. With `barrel_format='native'` the shard is
+boxlcd_tpu's uncompressed `{timestamp}-{index}-{ep_len}.tbarrel.npz`: the
+same entries, but the frames bit-packed and XOR-delta coded by the barrelpack
+codec (data/native) as `lcd_packed` + `lcd_shape`.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from boxlcd_tpu_torch.data.dataset import BARREL_SIZE
+from boxlcd_tpu_torch.data import native
+from boxlcd_tpu_torch.data.dataset import BARREL_SIZE, barrel_files
 from boxlcd_tpu_torch.engine import mega, physics
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import raster, traj_raster
@@ -39,6 +43,14 @@ def pack_bits(lcd):
                       device=lcd.device)
   return (lcd.reshape(*lcd.shape[:-1], -1, 8).to(torch.int32)
           * bitw).sum(-1).to(torch.uint8)
+
+
+def unpack_bits(packed, n):
+  """The inverse of pack_bits on the device: (..., B) uint8 -> (..., n)
+  uint8 0/1, the first n of the 8 B bits (np.unpackbits' order)."""
+  shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+  bits = (packed[..., None] >> shifts) & 1
+  return bits.reshape(*packed.shape[:-1], -1)[..., :n]
 
 
 def make_rollout_fn(env, policy_fn=None, pack_lcd=False):
@@ -168,6 +180,31 @@ def _fold_in(gen: torch.Generator, data: int) -> torch.Generator:
   return out
 
 
+def write_barrel_file(folder, bi, T, lcd_w, traj, barrel_format='npz'):
+  """Write one barrel of host arrays (`lcd` full frames or bit-packed along
+  W) as `{timestamp}-{bi}-{T}.barrel.npz` (compressed, full bool frames) or,
+  native, `.tbarrel.npz` (uncompressed, the codec's packed frames)."""
+  traj = dict(traj)
+  action = traj.pop('action')
+  lcd = traj.pop('lcd')
+  timestamp = datetime.now().strftime('%Y%m%dT%H%M%S')
+  if barrel_format == 'native':
+    # zlib on the host would dominate collection: the codec's ~8x smaller
+    # payload is stored uncompressed
+    if lcd.shape[-1] != lcd_w:  # device-packed bits go to the codec as is
+      blob = native.pack_frames_packed(lcd, (*lcd.shape[:-1], lcd_w))
+    else:
+      blob = native.pack_frames(lcd.astype(bool))
+    np.savez(Path(folder) / f'{timestamp}-{bi:05d}-{T}.tbarrel',
+             action=action, lcd_packed=blob['data'], lcd_shape=blob['shape'],
+             **traj)
+    return
+  if lcd.shape[-1] != lcd_w:  # device-packed bits -> full frames
+    lcd = np.unpackbits(lcd, axis=-1)
+  np.savez_compressed(Path(folder) / f'{timestamp}-{bi:05d}-{T}.barrel',
+                      action=action, lcd=lcd.astype(bool), **traj)
+
+
 def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
   """Fill `num_barrels` shards of BARREL_SIZE episodes each; returns the
   generator to continue from.
@@ -176,18 +213,18 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
   (make_mega_rollout_fn) when mega.supports(spec) and G.collect_mega
   (default 1); the per-step path (make_rollout_fn) on the CPU or with
   collect_mega=0. The megakernel path's render tripwire raises before any
-  barrel is written. Mesh sharding (`mesh`) and the native barrel format are
-  not ported and raise."""
+  barrel is written. G.barrel_format is 'npz' (default) or 'native'. Mesh
+  sharding (`mesh`) is not ported and raises."""
   if str(G.get('mesh', '') or ''):
     raise ValueError('mesh-sharded collection is not ported yet')
-  if G.get('barrel_format', 'npz') != 'npz':
-    raise ValueError('only the npz barrel format is ported')
+  barrel_format = G.get('barrel_format', 'npz')
+  if barrel_format not in ('npz', 'native'):
+    raise ValueError(f'unknown barrel format {barrel_format!r}')
   logdir = Path(G.logdir) / prefix
   logdir.mkdir(parents=True, exist_ok=True)
   # resume-aware: a rerun only collects the missing barrels (shards are
   # self-contained, so partial sets are valid)
-  existing = len(list(logdir.glob('*.barrel.npz'))) \
-      + len(list(logdir.glob('*.tbarrel.npz')))
+  existing = len(barrel_files(logdir))
   if existing >= num_barrels:
     print(f'[collect] {prefix}: {existing} barrels already present, skipping')
     return gen
@@ -224,15 +261,6 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
           'render of the same poses; refusing to write barrels')
     return traj
 
-  def write_barrel(traj, bi):
-    action = traj.pop('action')
-    lcd = traj.pop('lcd')
-    if lcd.shape[-1] != env.lcd_w:  # device-packed bits -> full frames
-      lcd = np.unpackbits(lcd, axis=-1)
-    timestamp = datetime.now().strftime('%Y%m%dT%H%M%S')
-    np.savez_compressed(logdir / f'{timestamp}-{bi:05d}-{T}.barrel',
-                        action=action, lcd=lcd.astype(bool), **traj)
-
   bi = 0
   while bi < num_barrels:
     t0 = time.time()
@@ -243,7 +271,8 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
     fps = n * BARREL_SIZE * T / (time.time() - t0)
     for j in range(n):
       sl = slice(j * BARREL_SIZE, (j + 1) * BARREL_SIZE)
-      write_barrel({k: v[sl] for k, v in traj.items()}, bi + j)
+      write_barrel_file(logdir, bi + j, T, env.lcd_w,
+                        {k: v[sl] for k, v in traj.items()}, barrel_format)
     bi += n
     print(f'[collect] {prefix} barrel {bi}/{num_barrels} '
           f'({fps:,.0f} env-steps/s)')

@@ -3,8 +3,8 @@
 The same in-memory numpy sampler as boxlcd_tpu/data/dataset.py (which
 replaces the reference's torch IterableDataset + 12-worker DataLoader,
 reference: research/data.py:123-179): barrels at reference scale fit in host
-RAM, so the "loader" is one vectorized gather per batch. Reads npz barrels;
-the native bit-packed format waits for the port of the barrelpack codec.
+RAM, so the "loader" is one vectorized gather per batch. Reads npz barrels
+and native ones (`*.tbarrel.npz`, frames through the barrelpack codec).
 """
 from __future__ import annotations
 
@@ -14,6 +14,24 @@ from pathlib import Path
 import numpy as np
 
 BARREL_SIZE = int(1e3)  # episodes per shard (reference: research/data.py:21)
+
+
+def barrel_files(folder):
+  """The npz and native barrels of a folder, npz first."""
+  folder = Path(folder)
+  return sorted(folder.glob('*.barrel.npz')) \
+      + sorted(folder.glob('*.tbarrel.npz'))
+
+
+def unpack_native(data):
+  """A loaded barrel dict with native `lcd_packed` + `lcd_shape` turned into
+  full bool `lcd` frames (npz barrels pass through)."""
+  if 'lcd_packed' in data:
+    from boxlcd_tpu_torch.data import native
+    data = dict(data)
+    data['lcd'] = native.unpack_frames(
+        {'data': data.pop('lcd_packed'), 'shape': data.pop('lcd_shape')})
+  return data
 
 
 class RolloutDataset:
@@ -30,8 +48,7 @@ class RolloutDataset:
     self._refresh()
 
   def _refresh(self):
-    self.barrel_files = sorted(self.barrel_path.glob('*.barrel.npz')) \
-        + sorted(self.barrel_path.glob('*.tbarrel.npz'))
+    self.barrel_files = barrel_files(self.barrel_path)
     self.nbarrels = len(self.barrel_files)
     assert self.nbarrels > 0, f'no barrels found at {self.barrel_path}'
 
@@ -39,10 +56,7 @@ class RolloutDataset:
     if path not in self._cache:
       with np.load(path) as z:
         data = {k: z[k] for k in z.keys()}
-      if 'lcd_packed' in data:  # native bit-packed format
-        raise NotImplementedError(
-            f'{path}: the native barrel codec is not ported yet')
-      self._cache[path] = data
+      self._cache[path] = unpack_native(data)
     return self._cache[path]
 
   def batches(self, batch_size):

@@ -1,0 +1,240 @@
+"""Shared NN blocks (the port of research/nets/common.py).
+
+The same computational contracts as the flax blocks: shapes, distribution
+heads, conditioning. Submodule attribute names are the flax parameter-tree
+names (`Dense_0`, `Conv_1`, `ln1`, ...), so `convert.py` maps a flax tree
+onto these modules by name alone. Layers are initialised as flax
+initialises them (lecun-normal kernels, zero biases) and the norms use
+flax's eps = 1e-6.
+
+Convolutions run NCHW inside; `Conv` pads as flax's 'SAME' does, which
+for a stride-2 convolution on an even size pads (0 before, 1 after), not
+torch's symmetric `padding=1`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from boxlcd_tpu_torch.research.nets import dists
+
+NORM_EPS = 1e-6          # flax LayerNorm / GroupNorm
+
+
+def lecun_normal_(weight, fan_in):
+  """flax's default kernel init: a normal of variance 1/fan_in truncated at
+  two standard deviations (variance_scaling, 'truncated_normal')."""
+  std = math.sqrt(1.0 / fan_in) / .87962566103423978
+  with torch.no_grad():
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
+def Dense(in_n, out_n, bias=True, zero=False):
+  """flax nn.Dense as nn.Linear (weight (out, in) = the flax kernel's
+  transpose)."""
+  layer = nn.Linear(in_n, out_n, bias=bias)
+  if zero:
+    nn.init.zeros_(layer.weight)
+  else:
+    lecun_normal_(layer.weight, in_n)
+  if bias:
+    nn.init.zeros_(layer.bias)
+  return layer
+
+
+def same_pad(size, k, s):
+  """flax/XLA 'SAME' padding of one spatial axis: (before, after)."""
+  out = -(-size // s)
+  total = max((out - 1) * s + k - size, 0)
+  return total // 2, total - total // 2
+
+
+class Conv(nn.Conv2d):
+  """flax nn.Conv(padding='SAME') on NCHW tensors (weight OIHW = the flax
+  HWIO kernel transposed)."""
+
+  def __init__(self, in_ch, out_ch, k, stride=1, zero=False):
+    super().__init__(in_ch, out_ch, k, stride, padding=0)
+    if zero:
+      nn.init.zeros_(self.weight)
+    else:
+      lecun_normal_(self.weight, in_ch * k * k)
+    nn.init.zeros_(self.bias)
+
+  def forward(self, x):
+    k, s = self.kernel_size[0], self.stride[0]
+    ph = same_pad(x.shape[-2], k, s)
+    pw = same_pad(x.shape[-1], k, s)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+      return F.conv2d(x, self.weight, self.bias, s, (ph[0], pw[0]))
+    return F.conv2d(F.pad(x, (*pw, *ph)), self.weight, self.bias, s)
+
+
+def LayerNorm(n):
+  return nn.LayerNorm(n, eps=NORM_EPS)
+
+
+class CausalSelfAttention(nn.Module):
+  """Masked multi-head self-attention (reference: common.py:22-57), written
+  out as the JAX einsums are: scores, a -inf mask, a float32 softmax."""
+
+  def __init__(self, n_embed, n_head, block_size):
+    super().__init__()
+    self.n_embed, self.n_head, self.block_size = n_embed, n_head, block_size
+    self.qkv = Dense(n_embed, 3 * n_embed)
+    self.proj = Dense(n_embed, n_embed)
+
+  def forward(self, x, cache=None, index=None):
+    """Full causal attention over x (B, T, E). With `cache=(k, v)`, each
+    (B, H, S, hs) and preallocated, and a position `index`, x is a single
+    token (B, 1, E): its k/v are written into the cache at `index` (in
+    place) and attention runs against the cached prefix. Returns the output,
+    and with a cache also the cache."""
+    B, T, E = x.shape
+    H = self.n_head
+    hs = E // H
+    q, k, v = (t.reshape(B, T, H, hs).transpose(1, 2)
+               for t in self.qkv(x).split(E, -1))
+    if cache is None:
+      keys, vals = k, v
+      mask = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    else:
+      keys, vals = cache
+      keys[:, :, index] = k[:, :, 0].to(keys.dtype)
+      vals[:, :, index] = v[:, :, 0].to(vals.dtype)
+      mask = (torch.arange(keys.shape[2], device=x.device) <= index)[None]
+    att = (q @ keys.transpose(-1, -2)).float() / math.sqrt(hs)
+    att = att.masked_fill(~mask, float('-inf')).softmax(-1)
+    y = att.to(vals.dtype) @ vals
+    y = self.proj(y.transpose(1, 2).reshape(B, T, E))
+    return y if cache is None else (y, cache)
+
+
+class TransformerBlock(nn.Module):
+  """Pre-LN transformer block (reference: common.py:59-74)."""
+
+  def __init__(self, n_embed, n_head, block_size):
+    super().__init__()
+    self.ln1 = LayerNorm(n_embed)
+    self.attn = CausalSelfAttention(n_embed, n_head, block_size)
+    self.ln2 = LayerNorm(n_embed)
+    self.Dense_0 = Dense(n_embed, 4 * n_embed)
+    self.Dense_1 = Dense(4 * n_embed, n_embed)
+
+  def forward(self, x, cache=None, index=None):
+    if cache is None:
+      x = x + self.attn(self.ln1(x))
+    else:
+      a, cache = self.attn(self.ln1(x), cache, index)
+      x = x + a
+    h = F.gelu(self.Dense_0(self.ln2(x)), approximate='tanh')  # flax nn.gelu
+    out = x + self.Dense_1(h)
+    return out if cache is None else (out, cache)
+
+
+class GaussHead(nn.Module):
+  """Diagonal-Gaussian head (reference: common.py:76-91)."""
+
+  def __init__(self, in_n, z_size, min_std=1e-4):
+    super().__init__()
+    self.min_std = min_std
+    self.Dense_0 = Dense(in_n, 2 * z_size)
+
+  def forward(self, x, past_z=None):
+    mu, log_std = self.Dense_0(x).chunk(2, -1)
+    std = F.softplus(log_std) + self.min_std
+    if past_z is not None:
+      mu = mu + past_z
+    return dists.Normal(mu, std)
+
+
+class MDNHead(nn.Module):
+  """Mixture-density head (reference: common.py:93-112)."""
+
+  def __init__(self, in_n, out_n, mdn_k=5, min_std=1e-4):
+    super().__init__()
+    self.out_n, self.mdn_k, self.min_std = out_n, mdn_k, min_std
+    self.Dense_0 = Dense(in_n, mdn_k + 2 * mdn_k * out_n)
+
+  def forward(self, x):
+    out = self.Dense_0(x)
+    dx = self.mdn_k * self.out_n
+    shape = (*out.shape[:-1], self.mdn_k, self.out_n)
+    mu = out[..., :dx].reshape(shape)
+    std = F.softplus(out[..., dx:2 * dx]).reshape(shape) + self.min_std
+    return dists.MixtureOfGaussians(out[..., 2 * dx:], mu, std)
+
+
+class CategoricalHead(nn.Module):
+  def __init__(self, in_n, out_n):
+    super().__init__()
+    self.Dense_0 = Dense(in_n, out_n)
+
+  def forward(self, x):
+    return dists.Categorical(self.Dense_0(x))
+
+
+class BinaryHead(nn.Module):
+  """Bernoulli head (reference: common.py:123-130)."""
+
+  def __init__(self, in_n, out_n):
+    super().__init__()
+    self.Dense_0 = Dense(in_n, out_n)
+
+  def forward(self, x):
+    return dists.Bernoulli(self.Dense_0(x))
+
+
+class ResBlock(nn.Module):
+  """GroupNorm+SiLU residual conv block with embedding conditioning
+  (reference: common.py:208-238); the final conv starts at zero. NCHW."""
+
+  def __init__(self, channels, emb_channels, out_channels=None,
+               group_size=16):
+    super().__init__()
+    out_ch = out_channels or channels
+    self.GroupNorm_0 = nn.GroupNorm(group_size, channels, eps=NORM_EPS)
+    self.Conv_0 = Conv(channels, out_ch, 3)
+    self.Dense_0 = Dense(emb_channels, out_ch)
+    self.GroupNorm_1 = nn.GroupNorm(group_size, out_ch, eps=NORM_EPS)
+    self.Conv_1 = Conv(out_ch, out_ch, 3, zero=True)
+    if out_ch != channels:
+      self.Conv_2 = Conv(channels, out_ch, 1)
+
+  def forward(self, x, emb):
+    h = self.Conv_0(F.silu(self.GroupNorm_0(x)))
+    h = h + self.Dense_0(F.silu(emb))[:, :, None, None]
+    h = self.Conv_1(F.silu(self.GroupNorm_1(h)))
+    skip = self.Conv_2(x) if hasattr(self, 'Conv_2') else x
+    return skip + h
+
+
+class Upsample(nn.Module):
+  """Nearest-x2 upsample + conv (reference: bvae.py:95-103). NCHW."""
+
+  def __init__(self, in_ch, out_ch):
+    super().__init__()
+    self.Conv_0 = Conv(in_ch, out_ch, 3)
+
+  def forward(self, x):
+    x = x.repeat_interleave(2, -2).repeat_interleave(2, -1)
+    return self.Conv_0(x)
+
+
+def aggregate(x, dim=1):
+  """min/max/std/mean aggregation (reference: common.py:241-254); std is the
+  population std, as jnp.std."""
+  return torch.cat([x.amin(dim), x.amax(dim), x.std(dim, correction=0),
+                    x.mean(dim)], -1)
+
+
+def zero_params(module):
+  """Zero every parameter of `module` in place (reference: common.py:16-20
+  zero_module) and return it."""
+  with torch.no_grad():
+    for p in module.parameters():
+      p.zero_()
+  return module

@@ -1,0 +1,57 @@
+"""Carry flax parameters into the port's modules.
+
+`flax_to_state_dict(params)` turns a flax parameter tree, given as nested
+dicts of numpy arrays (for example `jax.tree_util.tree_map(np.asarray,
+params)`), into a `state_dict` for the port's module of the same model
+(`BVAEModule`, `FBTModule`, or a block of `common.py`). The port's
+submodules carry the flax names, so the mapping is by name:
+  - Dense `kernel` (in, out)      -> Linear `weight` (out, in)
+  - Conv `kernel` HWIO            -> Conv2d `weight` OIHW
+  - LayerNorm/GroupNorm `scale`   -> `weight`
+  - `bias`, `embedding`, `pos_emb` as they are.
+Only this direction is provided. Loading a JAX checkpoint (`.pkl`) would
+need flax's msgpack serialization and is not supported.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _leaf(name, value):
+  value = np.asarray(value)
+  if name == 'kernel':
+    if value.ndim == 2:
+      return 'weight', value.T
+    if value.ndim == 4:
+      return 'weight', value.transpose(3, 2, 0, 1)
+    raise ValueError(f'kernel of rank {value.ndim}')
+  if name == 'scale':
+    return 'weight', value
+  return name, value
+
+
+def flax_to_state_dict(params):
+  """flax params (optionally under a top-level 'params') -> state_dict."""
+  if set(params) == {'params'}:
+    params = params['params']
+  out = {}
+
+  def walk(tree, prefix):
+    for name, value in tree.items():
+      if isinstance(value, dict):
+        walk(value, f'{prefix}{name}.')
+      else:
+        key, arr = _leaf(name, value)
+        out[prefix + key] = torch.as_tensor(np.array(arr, order='C'))
+
+  walk(params, '')
+  return out
+
+
+def load_flax(module, params):
+  """Load flax params into `module` in place (every key must match)."""
+  device = next(module.parameters()).device
+  module.load_state_dict({k: v.to(device) for k, v in
+                          flax_to_state_dict(params).items()})
+  return module

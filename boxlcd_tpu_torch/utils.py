@@ -8,10 +8,12 @@ torch tensors alike:
   - mapto / rmapto      the [-1, 1] <-> physical-bounds mapping (obs contract)
   - sortdict / filtlist / nfiltlist helpers
   - resolve_device      the device rule of the port's entry points
+  - args_type           CLI flag coercion from a default value's type
   - NUM_SMS / MAX_SHARED_BYTES  the card's facts that launch geometry uses
 """
 from __future__ import annotations
 
+import pathlib
 import re
 
 import numpy as np
@@ -32,10 +34,30 @@ def resolve_device(device=None) -> torch.device:
   return device
 
 
+def set_tf32(enabled):
+  """Allow or forbid TF32 for float32 matmuls and cuDNN convolutions, for
+  the whole process. PyTorch allows it for convolutions by default, which
+  on Hopper makes a float32 convolution a TF32 one; an entry point decides
+  (`research.main` forbids it), never a model."""
+  torch.backends.cuda.matmul.allow_tf32 = enabled
+  torch.backends.cudnn.allow_tf32 = enabled
+
+
 class AttrDict(dict):
   """dict with attribute access; the flat config object used everywhere."""
   __setattr__ = dict.__setitem__
   __getattr__ = dict.__getitem__
+
+
+def args_type(default):
+  """Return a coercion fn for CLI flags based on a default value's type."""
+  if isinstance(default, bool):
+    return lambda x: bool(['False', 'True'].index(x))
+  if isinstance(default, int):
+    return lambda x: float(x) if ('e' in x or '.' in x) else int(x)
+  if isinstance(default, pathlib.Path):
+    return lambda x: pathlib.Path(x).expanduser()
+  return type(default)
 
 
 class _ConciseArray:

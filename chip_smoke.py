@@ -50,16 +50,32 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. per-step path: `fill_barrels` with collect_mega=0 at 1000 worlds x 25
      steps (the lcd raster launches once a step), and the per-layer times of
      one step at 4000 worlds;
-  10. solver path: bench.py's BENCH_SOLVER=sub line, Urchin, 4096 worlds x
-     100 steps of step_world_batch with the substep kernel, then
-     Env.observe, launches counted as in phase 8 (substep kernel 100 x
-     substeps, lcd raster 100, no other); the final state equal to the
+  10. solver path: bench.py's BENCH_SOLVER=sub line, Urchin, 4096 worlds, at
+     50 of its 100 steps, of step_world_batch with the substep kernel, then
+     Env.observe, launches counted as in phase 8 (substep kernel 50 x
+     substeps, lcd raster 50, no other); the final state equal to the
      plain path's bit for bit; the busy share, the per-layer times of one
      step, and both solver kernels' times beside their bounds and plain
      versions, their launch geometry, occupancy and block-size times;
-  11. VecEnv: Luxo in body mode, 8 envs, ep_len + 1 steps (autoreset runs),
-     then LuxoCube in cube mode; numpy observations, the lcd raster at least
-     once a step, timeouts on ep_len.
+  11. VecEnv: Luxo in body mode, 8 envs, ep_len + 1 steps (autoreset runs;
+     ep_len cut from 100 to 25), then LuxoCube in cube mode; numpy observations, the lcd raster at least
+     once a step, timeouts on ep_len;
+  12. world models on Urchin (16x32, ep_len 100) at research/scripts/
+     kicker.py's widths: collection through the port's research.main
+     (--mode=collect, native barrels: 2 train, 1 test, one megakernel
+     dispatch each, launches counted); one dispatch written as npz and as
+     native, both decoding to the same arrays, with each format's write ms;
+     the BVAE (hidden 64, vqK 64, vqD 16, nfilter 16, window 5, bs 64)
+     trained 300 steps through the Trainer, the FBT (4 layers, 8 heads,
+     n_embed 512, window 50, bs 64) 300 steps through the device-dataset
+     branch (precompute_z + train_device, bfloat16 autocast) and 5 through
+     the Trainer (the encode path), every logged loss finite and the last
+     below the first; precompute_z's peak memory; ms a train step
+     (synchronised, repeated), frames/s and peak memory; `evaluate` of each
+     model (the lcd raster launches twice in each, for the proprio
+     re-render); FBT.sample cached and uncached from one generator state,
+     bit for bit equal, with frames/s; the card's BVAE and FBT forwards and
+     losses against the same modules on the CPU (same state dict).
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -84,14 +100,21 @@ import torch
 import boxlcd_tpu_torch
 from boxlcd_tpu_torch import _build
 from boxlcd_tpu_torch.data.collect import (
-    fill_barrels, make_mega_rollout_fn, make_rollout_fn, pack_bits)
+    fill_barrels, make_mega_rollout_fn, make_rollout_fn, pack_bits,
+    write_barrel_file)
 from boxlcd_tpu_torch.data.dataset import BARREL_SIZE, RolloutDataset
+from boxlcd_tpu_torch.data.device_dataset import (
+    DeviceDataset, make_device_trainer)
 from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.engine.spec import CIRCLE
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
+from boxlcd_tpu_torch.research import main as research_main
+from boxlcd_tpu_torch.research.nets._base import autocast
+from boxlcd_tpu_torch.research.nets.autoencoders.bvae import BVAE
+from boxlcd_tpu_torch.research.nets.video_models.fbt import FBT
 from boxlcd_tpu_torch.research.wrappers import VecEnv
-from boxlcd_tpu_torch.utils import AttrDict
+from boxlcd_tpu_torch.utils import AttrDict, set_tf32
 
 ITERS = {'vel_iters': 8, 'pos_iters': 4}     # bench.py's headline setting
 CHECK_ENVS = [('Urchin', 32, 16), ('LuxoCube', 24, 16), ('Object3', 16, 16),
@@ -120,8 +143,33 @@ VEL_FIELDS = ['v', 'w', 'c', 'a']           # test_pallas: within 1e-4
 SUB_FIELDS = ['v', 'w', 'c', 'a', 'wc_imp', 'pc_imp', 'j_imp', 'j_mot',
               'j_lim', 'sleep_time']        # test_pallas: within 2e-3
 SOLVER_BATCH = 4096                         # bench.py's BENCH_SOLVER=sub line
+SOLVER_STEPS = 50                           # its 100 steps, cut in depth
 VEC_ENV, VEC_CUBE_ENV, VEC_ENVS = 'Luxo', 'LuxoCube', 8   # define_config:84
 VEC_CUBE_STEPS = 5
+VEC_EP_LEN = 25                             # ep_len 100, cut in depth
+WM_BARRELS = {'train': 2, 'test': 1}       # the world models' data, Urchin
+WM_COMMON = ['--env=Urchin', '--bs=64', '--lr=5e-4', '--vel_iters=8',
+             '--pos_iters=4']               # kicker.py's --lr default
+WM_BVAE = ['--hidden_size=64', '--vqK=64', '--vqD=16', '--nfilter=16',
+           '--window=5']                    # research/scripts/kicker.py:20
+WM_FBT = ['--n_layer=4', '--n_head=8', '--n_embed=512', '--window=50',
+          '--prompt_n=3']                   # kicker.py:28, :35, :37
+WM_STEPS, WM_LOG_N = 300, 100               # train steps; a log every 100
+WM_TRAINER_FBT_STEPS = 5                    # FBT through the Trainer
+WM_WRITES = 3                               # barrel writes a format
+WM_TIMED_STEPS = 20                         # train steps a timing
+WM_SAMPLE_N = 8                             # G.video_n
+WM_CPU_FBT_EPISODES = 16                    # the card-vs-CPU FBT batch
+# card vs CPU, float32 on both (TF32 off): logits within 2e-4 absolute,
+# losses within 1e-6 relative. On the H100 float32 read 1.3e-5 to 5.3e-5
+# and 0 to 8.2e-8; the same card with TF32 on read 4.8e-3 to 3.3e-2 and
+# 4.3e-6 to 1.8e-5, and the smoke fails unless that control breaks the
+# logit bound (PERF.md §6, the world-model chain's findings)
+WM_LOGIT_TOL, WM_LOSS_RTOL = 2e-4, 1e-6
+# one bfloat16-autocast forward's loss against the float32 one on the card,
+# same batch: within 1e-3 relative (bfloat16 keeps 8 significant bits, a
+# rounding of 3.9e-3; a mean loss averages it down: 8.0e-5 to 1.2e-4 read)
+WM_BF16_LOSS_RTOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 FP32_FLOPS = 67e12                          # H100 SXM, outside the tensor cores
 
@@ -138,8 +186,9 @@ def card_phase():
   log(f'torch {torch.__version__} cuda {torch.version.cuda} '
       f'device {torch.cuda.get_device_name(0)} '
       f'count {torch.cuda.device_count()}')
-  # the physics has no matrix products; state the setting all the same
-  torch.backends.cuda.matmul.allow_tf32 = False
+  # float32 is float32 (the world models' products and convolutions; the
+  # physics has none); only the card-vs-CPU control turns TF32 on
+  set_tf32(False)
   return smi.splitlines()[0]
 
 
@@ -896,10 +945,8 @@ def main_path_phase(dev, smi):
     t0 = time.perf_counter()
     for j in range(MAIN_BARRELS):
       sl = slice(j * BARREL_SIZE, (j + 1) * BARREL_SIZE)
-      traj_j = {k: v[sl] for k, v in host.items() if k != 'obs_ok'}
-      lcd = np.unpackbits(traj_j.pop('lcd'), axis=-1)
-      np.savez_compressed(Path(tmp) / f'{j}.barrel', lcd=lcd.astype(bool),
-                          **traj_j)
+      write_barrel_file(tmp, j, T, W, {k: v[sl] for k, v in host.items()
+                                       if k != 'obs_ok'})
     layers['barrel_writes'] = ('host', (time.perf_counter() - t0) * 1e3)
   layers['dispatch'] = ('host', wall_ms(lambda: fn.core(st, acts), 2))
   for name, (clock, t) in layers.items():
@@ -1105,16 +1152,17 @@ def solver_bound(spec, tensors, bundle, with_position):
 
 def solver_path_phase(dev, smi):
   """bench.py's BENCH_SOLVER=sub line at full width: Urchin, 8/4 iterations,
-  4096 worlds, 100 steps of step_world_batch with the substep kernel, each
-  followed by Env.observe, whose three parts are summed and consumed. Every
-  launch count is set to 0 just before and read just after; the final state
-  must equal a plain 100-step rollout's from the same states and actions
+  4096 worlds, SOLVER_STEPS steps (its 100 cut in depth) of step_world_batch
+  with the substep kernel, each followed by Env.observe, whose three parts
+  are summed and consumed. Every launch count is set to 0 just before and
+  read just after; the final state must equal a plain rollout's from the
+  same states and actions
   bit for bit. Then the busy share of 5 profiled steps, the
   per-layer times of one step with the kernel and with the plain solves,
   and both kernels' times beside their bounds."""
   env = _env(MAIN_ENV, dev)
   spec = env.spec
-  T, B = int(env.G.ep_len), SOLVER_BATCH
+  T, B = SOLVER_STEPS, SOLVER_BATCH
   gen = torch.Generator(device=dev).manual_seed(6)
   st0 = Env.reset(env, gen, B)
   acts = torch.rand((T, B, env.act_size), generator=gen, device=dev) * 2 - 1
@@ -1258,7 +1306,8 @@ def solver_path_phase(dev, smi):
 
 def vec_env_phase(dev, smi):
   """The per-step batched env on the card: VecEnv on Luxo in body mode with
-  8 envs for ep_len + 1 steps of random actions (autoreset runs), then cube
+  8 envs for ep_len + 1 steps of random actions (autoreset runs; ep_len cut
+  to VEC_EP_LEN), then cube
   mode on LuxoCube for a few steps. Observations come back as numpy; the
   lcd raster launches at least once a step and no other kernel runs;
   timeouts fall on ep_len."""
@@ -1266,7 +1315,7 @@ def vec_env_phase(dev, smi):
   out = {}
   rng = np.random.default_rng(0)
   for name, mode in ((VEC_ENV, 'body'), (VEC_CUBE_ENV, 'cube')):
-    env = _env(name, dev)
+    env = _env(name, dev, ep_len=VEC_EP_LEN)
     ep_len = int(env.G.ep_len)
     steps = ep_len + 1 if mode == 'body' else VEC_CUBE_STEPS
     venv = VecEnv(env, VEC_ENVS, G, goal_mode=mode, seed=0)
@@ -1313,6 +1362,316 @@ def vec_env_phase(dev, smi):
   return out
 
 
+class RecordingWriter:
+  """The writer's surface; keeps the tags evaluate logged."""
+
+  def __init__(self):
+    self.tags = []
+
+  def add_scalar(self, tag, *a, **k):
+    self.tags.append(tag)
+
+  add_image = add_video = add_scalar
+
+  def flush(self):
+    pass
+
+
+def _losses(history, label):
+  """The logged total losses; all finite and the last below the first."""
+  losses = [float(line['loss/total']) for _, line in history]
+  log(f'[wm] {label} logged losses at steps '
+      f'{[itr for itr, _ in history]}: {losses}')
+  if len(losses) < 2 or not np.isfinite(losses).all():
+    raise RuntimeError(f'{label}: losses {losses}')
+  return losses
+
+
+def _wm_collect(data):
+  """Collection through the CLI into native barrels; launches counted."""
+  _zero_launches()
+  t0 = time.perf_counter()
+  research_main.main([
+      '--mode=collect', f'--logdir={data}',
+      f'--train_barrels={WM_BARRELS["train"]}',
+      f'--test_barrels={WM_BARRELS["test"]}', f'--num_envs={BARREL_SIZE}',
+      '--barrel_format=native', *WM_COMMON])
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _launches()
+  n = sum(WM_BARRELS.values())
+  log(f'[wm] collect (research.main, native barrels) {n} x {BARREL_SIZE} '
+      f'episodes: {wall:.2f} s; launches {launches}')
+  if launches != _expect(mega_rollout=n, traj_raster=n, lcd_raster=n):
+    raise RuntimeError(f'collect launches {launches}: one dispatch a barrel')
+  for sub, count in WM_BARRELS.items():
+    files = sorted((data / sub).glob('*.tbarrel.npz'))
+    if len(files) != count:
+      raise RuntimeError(f'{sub}: {len(files)} native barrels, not {count}')
+    ds = RolloutDataset(data / sub, infinite=False)
+    for f in files:
+      lcd = ds._load(f)['lcd']
+      if lcd.shape[0] != BARREL_SIZE or lcd.shape[2:] != (16, 32) or \
+          lcd.all() or not lcd.any():
+        raise RuntimeError(f'{f.name}: lcd {lcd.shape}')
+  return dict(wall_s=wall, launches=launches)
+
+
+def _wm_writes(dev, smi, tmp):
+  """One megakernel dispatch written as npz and as native: the same arrays
+  back, and each format's write ms (host clock)."""
+  env = _env(MAIN_ENV, dev)
+  fn, T = make_mega_rollout_fn(env, pack_lcd=True)
+  traj = {k: v.cpu().numpy() for k, v in fn(
+      torch.Generator(device=dev).manual_seed(1), BARREL_SIZE).items()}
+  if not traj.pop('obs_ok'):
+    raise RuntimeError('tripwire: traj raster frames differ')
+  ms, loaded, size = {}, {}, {}
+  for fmt in ('npz', 'native'):
+    folder = tmp / f'writes_{fmt}'
+    folder.mkdir()
+    ms[fmt] = []
+    for r in range(WM_WRITES):
+      t0 = time.perf_counter()
+      write_barrel_file(folder, r, T, env.lcd_w, traj, fmt)
+      ms[fmt].append((time.perf_counter() - t0) * 1e3)
+    files = sorted(folder.iterdir())
+    size[fmt] = files[0].stat().st_size
+    loaded[fmt] = RolloutDataset(folder, infinite=False)._load(files[0])
+  a, b = loaded['npz'], loaded['native']
+  if set(a) != set(b) or any(not np.array_equal(a[k], b[k]) for k in a):
+    raise RuntimeError('npz and native barrels decode differently')
+  if not np.array_equal(a['lcd'], np.unpackbits(traj['lcd'], axis=-1)):
+    raise RuntimeError('barrel frames differ from the dispatch')
+  log(f'[wm] barrel write, one dispatch ({BARREL_SIZE} x {T}, Urchin): '
+      f'npz {ms["npz"]} ms ({size["npz"]} B), native {ms["native"]} ms '
+      f'({size["native"]} B) (host clock, {WM_WRITES} writes each) on '
+      f'{smi}; both decode to the same arrays')
+  return dict(write_ms=ms, bytes=size)
+
+
+def _wm_train(argv):
+  G, env = research_main.parse_flags(['--mode=train', *argv])
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  model, history = research_main.train(G, env)
+  torch.cuda.synchronize()
+  return model, history, time.perf_counter() - t0
+
+
+def _step_times(label, step, frames, smi):
+  """ms a train step (host clock around synchronised repeats), the peak
+  memory of those steps, and the device's busy share of a step (profiled
+  device time over wall time) with its device events."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  ms = wall_ms(step, WM_TIMED_STEPS)
+  peak = torch.cuda.max_memory_allocated()
+  dev_ms, events = profiled(step, 5)
+  log(f'[wm] {label}: {ms:.3f} ms a step, {1e3 / ms:.1f} steps/s, '
+      f'{frames * 1e3 / ms:.1f} frames/s, peak {peak / 2**20:.1f} MiB '
+      f'({WM_TIMED_STEPS} steps, synchronised); device {_fmt(dev_ms)} a '
+      f'step in {events:.0f} events (profiler) on {smi}')
+  return dict(ms=ms, steps_per_s=1e3 / ms, frames_per_s=frames * 1e3 / ms,
+              peak_bytes=peak, device_ms=dev_ms, events=events)
+
+
+def _wm_outputs(bvae, fbt, bbatch, fbatch, u, precision='float32'):
+  """The BVAE's z and frame logits and loss, and the FBT's token logits and
+  loss, on one fixed batch each; tensors on the CPU."""
+  flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in bbatch.items()}
+  with torch.no_grad(), autocast(bvae.device, precision):
+    z_e = bvae.module.enc(flat['lcd'], flat['proprio'])
+    dec = bvae.module.dec(torch.sigmoid(z_e))
+    bloss, _ = bvae.loss_fn(bbatch, u=u.to(bvae.device))
+    flogits = fbt.module(fbt._latents(fbatch), fbatch['action'])
+    floss, _ = fbt.loss_fn(fbatch)
+  return {'bvae_z_logits': z_e.float().cpu(),
+          'bvae_lcd_logits': dec['lcd'].logits.float().cpu(),
+          'fbt_logits': flogits.float().cpu(),
+          'bvae_loss': float(bloss), 'fbt_loss': float(floss)}
+
+
+def _wm_errors(got, want):
+  """Largest logit differences (absolute) and loss differences (relative)."""
+  errs = {k: float((got[k] - want[k]).abs().max())
+          for k in ('bvae_z_logits', 'bvae_lcd_logits', 'fbt_logits')}
+  for m in ('bvae', 'fbt'):
+    a, b = got[f'{m}_loss'], want[f'{m}_loss']
+    errs[f'{m}_loss_rel'] = abs(a - b) / abs(b)
+    errs[f'{m}_losses'] = (a, b)
+  return errs
+
+
+def _card_vs_cpu(bvae, fbt, bbatch, fbatch):
+  """The card's BVAE and FBT forwards and losses against the same modules
+  (same state dict) on the CPU, from one fixed batch; the same on the card
+  with TF32 on (a control: what the gate must tell apart from float32);
+  and the bfloat16-autocast losses against the float32 ones on the card."""
+  env = _env(MAIN_ENV, 'cpu')
+  bcpu = BVAE(env, AttrDict(bvae.G, device='cpu'))
+  bcpu.module.load_state_dict(bvae.module.state_dict())
+  fcpu = FBT(env, AttrDict(fbt.G, device='cpu'), bvae=bcpu)
+  fcpu.module.load_state_dict(fbt.module.state_dict())
+  cpu = lambda b: {k: v.cpu() for k, v in b.items()}
+  frames = bbatch['lcd'].shape[0] * bbatch['lcd'].shape[1]
+  u = torch.rand((frames, bvae.zH, bvae.zW, bvae.G.vqD),
+                 generator=torch.Generator().manual_seed(0))
+  want = _wm_outputs(bcpu, fcpu, cpu(bbatch), cpu(fbatch), u)
+  card = _wm_outputs(bvae, fbt, bbatch, fbatch, u)
+  set_tf32(True)
+  try:
+    tf32 = _wm_outputs(bvae, fbt, bbatch, fbatch, u)
+  finally:
+    set_tf32(False)
+  bf16 = _wm_outputs(bvae, fbt, bbatch, fbatch, u, precision='bfloat16')
+  errs = _wm_errors(card, want)
+  control = _wm_errors(tf32, want)
+  bf16_errs = _wm_errors(bf16, card)
+  log(f'[wm] card vs CPU (float32 both, TF32 off, same state dict; BVAE '
+      f'{frames} frames, FBT {WM_CPU_FBT_EPISODES} x {fbt.block_size} '
+      f'tokens): {errs}; bounds: logits {WM_LOGIT_TOL} abs, losses '
+      f'{WM_LOSS_RTOL} rel')
+  log(f'[wm] control, card with TF32 on vs CPU: {control}; must break '
+      f'the logit bound')
+  log(f'[wm] bfloat16 autocast vs float32 on the card, same batch: '
+      f'{bf16_errs}; bound: losses {WM_BF16_LOSS_RTOL} rel')
+  if max(errs['bvae_z_logits'], errs['bvae_lcd_logits'],
+         errs['fbt_logits']) > WM_LOGIT_TOL or max(
+             errs['bvae_loss_rel'], errs['fbt_loss_rel']) > WM_LOSS_RTOL:
+    raise RuntimeError(f'card and CPU forwards differ: {errs}')
+  if max(control['bvae_z_logits'], control['bvae_lcd_logits'],
+         control['fbt_logits']) <= WM_LOGIT_TOL:
+    raise RuntimeError(f'the gate cannot tell TF32 from float32: {control}')
+  if max(bf16_errs['bvae_loss_rel'],
+         bf16_errs['fbt_loss_rel']) > WM_BF16_LOSS_RTOL:
+    raise RuntimeError(f'bfloat16 and float32 losses differ: {bf16_errs}')
+  return dict(errs, tf32_control=control, bf16_vs_float32=bf16_errs)
+
+
+def world_model_phase(dev, smi):
+  """collect -> BVAE -> FBT -> KV-cached sampling on the card, through the
+  port's research.main at kicker.py's widths on Urchin."""
+  out = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    data, bdir = tmp / 'data', tmp / 'bvae'
+    out['collect'] = _wm_collect(data)
+    out.update(_wm_writes(dev, smi, tmp))
+
+    flags = [f'--datadir={data}', f'--total_itr={WM_STEPS}',
+             f'--log_n={WM_LOG_N}', *WM_COMMON]
+    bvae, bhist, bs = _wm_train(['--model=BVAE', f'--logdir={bdir}',
+                                 *flags, *WM_BVAE])
+    fbt, fhist, fs = _wm_train([
+        '--model=FBT', f'--logdir={tmp / "fbt"}', f'--weightdir={bdir}',
+        '--device_dataset=1', f'--steps_per_dispatch={WM_LOG_N}', *flags,
+        *WM_FBT])
+    fbt2, f2hist, f2s = _wm_train([
+        '--model=FBT', f'--logdir={tmp / "fbt_trainer"}',
+        f'--weightdir={bdir}', '--device_dataset=0', f'--datadir={data}',
+        f'--total_itr={WM_TRAINER_FBT_STEPS}',
+        f'--log_n={WM_TRAINER_FBT_STEPS}', *WM_COMMON, *WM_FBT])
+    losses = {'bvae': _losses(bhist, 'BVAE (Trainer)'),
+              'fbt': _losses(fhist, 'FBT (device dataset)'),
+              'fbt_trainer': _losses(f2hist, 'FBT (Trainer)')}
+    for k in ('bvae', 'fbt'):
+      if not losses[k][-1] < losses[k][0]:
+        raise RuntimeError(f'{k}: the last logged loss is not below the '
+                           f'first: {losses[k]}')
+    log(f'[wm] params: BVAE {bvae.num_vars:,}, FBT {fbt.num_vars:,}; train '
+        f'wall BVAE {bs:.1f} s, FBT {fs:.1f} s ({WM_STEPS} steps each, '
+        f'evaluates and saves included), FBT Trainer {f2s:.1f} s')
+
+    # precompute_z over the train barrels, its peak memory
+    ds = DeviceDataset(data / 'train', device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    z = fbt.precompute_z(ds.data, unpack=ds.unpack_lcd)
+    torch.cuda.synchronize()
+    pz_ms = (time.perf_counter() - t0) * 1e3
+    pz_peak = torch.cuda.max_memory_allocated()
+    log(f'[wm] precompute_z: {ds.n_episodes} episodes x {ds.ep_len} frames '
+        f'in {pz_ms:.1f} ms, peak {pz_peak / 2**20:.1f} MiB '
+        f'({before / 2**20:.1f} MiB before) on {smi}')
+
+    # ms a train step at the full widths
+    gen = torch.Generator(device=dev).manual_seed(0)
+    zdata = {'z': z, 'action': ds.data['action']}
+    bb, bw, fb, fw = bvae.G.bs, bvae.G.window, fbt.G.bs, fbt.G.window
+    bbatch = ds.sample(gen, bb, bw)
+    steps = {}
+    for prec in ('float32', 'bfloat16'):
+      steps[f'bvae_{prec}'] = _step_times(
+          f'BVAE update, {prec} (bs {bb} x window {bw})',
+          lambda: bvae.update(bbatch, gen, precision=prec), bb * bw, smi)
+      run = make_device_trainer(fbt, ds, fb, fw, 1, matmul_precision=prec)
+      steps[f'fbt_{prec}'] = _step_times(
+          f'FBT device-trainer step, {prec} (bs {fb} x window {fw}, batch '
+          f'gather included)', lambda: run(gen, zdata), fb * fw, smi)
+
+    # evaluate: the proprio re-render launches the lcd raster
+    evals = {}
+    for name, model in (('bvae', bvae), ('fbt', fbt)):
+      batch = next(RolloutDataset(data / 'test', window=model.G.window)
+                   .batches(model.G.bs))
+      writer = RecordingWriter()
+      _zero_launches()
+      metrics = model.evaluate(writer, batch, WM_STEPS)
+      torch.cuda.synchronize()
+      launches = _launches()
+      log(f'[wm] {name} evaluate: {metrics}; launches {launches}')
+      if launches != _expect(lcd_raster=2):
+        raise RuntimeError(f'{name} evaluate launches {launches}')
+      evals[name] = dict(metrics=metrics, launches=launches)
+
+    # KV-cached vs uncached sampling from one generator state; each path
+    # warmed once (the float64 copy is made on the first call), the second
+    # reading of each kept
+    g = torch.Generator(device=dev).manual_seed(7)
+    state = g.get_state()
+    samples, sample_ms = {}, {}
+    for use_cache in (True, False, True, False):
+      g.set_state(state)
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      samples[use_cache] = fbt.sample(g, WM_SAMPLE_N, use_cache=use_cache)
+      torch.cuda.synchronize()
+      sample_ms[use_cache] = (time.perf_counter() - t0) * 1e3
+    for k in samples[True]:
+      if not torch.equal(samples[True][k], samples[False][k]):
+        raise RuntimeError(f'cached and uncached samples differ in {k}')
+    frames = WM_SAMPLE_N * fbt.block_size
+    sample_dev = {c: profiled(lambda: fbt.sample(g, WM_SAMPLE_N,
+                                                 use_cache=c), 1)
+                  for c in (True, False)}
+    log(f'[wm] FBT.sample n={WM_SAMPLE_N} x {fbt.block_size}: cached '
+        f'{sample_ms[True]:.1f} ms ({frames * 1e3 / sample_ms[True]:.1f} '
+        f'frames/s), uncached {sample_ms[False]:.1f} ms '
+        f'({frames * 1e3 / sample_ms[False]:.1f} frames/s), warm, float64 '
+        f'serving (its copy made before), on {smi}; '
+        f'bit for bit equal; device (profiler) cached '
+        f'{_fmt(sample_dev[True][0])} in {sample_dev[True][1]:.0f} events, '
+        f'uncached {_fmt(sample_dev[False][0])} in '
+        f'{sample_dev[False][1]:.0f} events')
+
+    fbatch = ds.sample(gen, WM_CPU_FBT_EPISODES, fw, zdata)
+    errs = _card_vs_cpu(bvae, fbt, bbatch, fbatch)
+  return dict(out, losses=losses, params={'bvae': bvae.num_vars,
+                                          'fbt': fbt.num_vars},
+              train_wall_s={'bvae': bs, 'fbt': fs, 'fbt_trainer': f2s},
+              precompute_z=dict(ms=pz_ms, peak_bytes=pz_peak,
+                                before_bytes=before),
+              steps=steps, evaluate=evals,
+              sample=dict(cached_ms=sample_ms[True],
+                          uncached_ms=sample_ms[False],
+                          frames_per_s=frames * 1e3 / sample_ms[True],
+                          device=sample_dev),
+              card_vs_cpu=errs)
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument('--out', default=None, help='also write the results here')
@@ -1342,6 +1701,7 @@ def main():
   step_run = run('per-step', per_step_phase, dev, smi)
   sol_path = run('solver-path', solver_path_phase, dev, smi)
   vec = run('vec-env', vec_env_phase, dev, smi)
+  wm = run('world-model', world_model_phase, dev, smi)
   lt, tt, mt = kern['times'][TRIPWIRE_FRAMES], traj['times'], meg['times']
   launches = main_run['launches']
   sk = sol_path['kernels']
@@ -1384,7 +1744,7 @@ def main():
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build, ptxas=ptxas, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
         reference=ref, solver=sol, main=main_run, per_step=step_run,
-        solver_path=sol_path, vec_env=vec, kernels=kernels,
+        solver_path=sol_path, vec_env=vec, world_model=wm, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)

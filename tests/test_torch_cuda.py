@@ -18,7 +18,7 @@ from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
 from boxlcd_tpu_torch.research.wrappers import VecEnv
-from boxlcd_tpu_torch.utils import AttrDict
+from boxlcd_tpu_torch.utils import AttrDict, set_tf32
 
 # one intra-op thread: the tensors here are small, and where the suite runs
 # its files in parallel processes, more threads only contend for the cores
@@ -362,3 +362,67 @@ def test_rasters_on_crabcube_equal_plain(cuda_device, width, height):
   assert int((got != want).sum()) == 0
   frames = raster.unpack_rows(got, width)
   assert not frames.all() and frames.any()
+
+
+@pytest.fixture
+def float32_card(cuda_device):
+  """TF32 off for the test (the training CLI's setting), restored after."""
+  old = (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32)
+  set_tf32(False)
+  yield cuda_device
+  torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+# The world models on the card (float32, TF32 off) against the same modules
+# on the CPU from the same state dict, at random init: logits within 1e-3,
+# losses within 1e-4 relative (chip_smoke.py holds its trained models
+# tighter); cached and uncached sampling bit for bit equal on the card too.
+def test_world_models_on_card_match_cpu(float32_card):
+  cuda_device = float32_card
+  from boxlcd_tpu_torch.research.define_config import config
+  from boxlcd_tpu_torch.research.nets.autoencoders.bvae import BVAE
+  from boxlcd_tpu_torch.research.nets.video_models.fbt import FBT
+  models = {}
+  for dev in ('cpu', cuda_device):
+    env = boxlcd_tpu_torch.env_map['Urchin'](ITERS, device=dev)
+    G = config()
+    G.update(hidden_size=64, vqK=64, vqD=16, nfilter=16, window=12, bs=8,
+             n_layer=2, n_head=8, n_embed=128, lr=5e-4, device=str(dev),
+             wh_ratio=env.G.wh_ratio, lcd_base=env.G.lcd_base)
+    bvae = BVAE(env, G)
+    models[str(dev)] = (bvae, FBT(env, G, bvae=bvae))
+  rng = np.random.default_rng(0)
+  P, A = env.pobs_size, env.act_size
+  batch = {'lcd': (rng.random((8, 12, 16, 32)) > 0.5).astype(np.float32),
+           'proprio': rng.uniform(-1, 1, (8, 12, P)).astype(np.float32),
+           'action': rng.uniform(-1, 1, (8, 12, A)).astype(np.float32)}
+  u = torch.rand((96, 4, 8, 16), generator=torch.Generator().manual_seed(1))
+  out = {}
+  for dev, (bvae, fbt) in models.items():
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    with torch.no_grad():
+      z = bvae.encode(b)
+      logits = fbt.module(z, b['action'])
+      out[dev] = (bvae.decode(z.reshape(-1, bvae.z_size))['lcd'].logits,
+                  logits, float(bvae.loss_fn(b, u=u.to(dev))[0]),
+                  float(fbt.loss_fn(b)[0]))
+  (bl, fl, lb, lf), (bl_c, fl_c, lb_c, lf_c) = out['cuda'], out['cpu']
+  assert float((bl.cpu() - bl_c).abs().max()) < 1e-3
+  assert float((fl.cpu() - fl_c).abs().max()) < 1e-3
+  assert abs(lb - lb_c) < 1e-4 * abs(lb_c)
+  assert abs(lf - lf_c) < 1e-4 * abs(lf_c)
+  _, fbt = models['cuda']
+  g = torch.Generator(device=cuda_device).manual_seed(3)
+  state = g.get_state()
+  a = fbt.sample(g, 4, use_cache=True)
+  g.set_state(state)
+  c = fbt.sample(g, 4, use_cache=False)
+  assert all(torch.equal(a[k], c[k]) for k in a)
+
+
+def test_native_codec_builds_and_round_trips(cuda_device):
+  from boxlcd_tpu_torch.data import native
+  assert native.build().exists()
+  frames = np.random.default_rng(0).random((3, 10, 16, 32)) > 0.6
+  assert (native.unpack_frames(native.pack_frames(frames)) == frames).all()
