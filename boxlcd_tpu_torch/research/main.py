@@ -1,12 +1,15 @@
-"""Research CLI: collect / train (the port of research/main.py).
+"""Research CLI: collect / train / eval (the port of research/main.py).
 
     python -m boxlcd_tpu_torch.research.main --mode=collect --env=Urchin ...
     python -m boxlcd_tpu_torch.research.main --mode=train --model=BVAE ...
+    python -m boxlcd_tpu_torch.research.main --mode=eval --model=FBT \
+        --weightdir=<FBT logdir> --arbiterdir=<MultiStepArbiter logdir> ...
 
 Keeps the reference's config-resume chain: flags -> datadir/hps.yaml
 inheritance -> weightdir/hps.yaml inheritance -> derived lcd dims
 (reference: main.py:31-55). Runs on the card unless --device=cpu, with
-TF32 off. The eval, viz and fiddle modes are not ported yet and raise.
+TF32 off. The viz and fiddle modes and ipython_mode are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -106,6 +109,15 @@ def train(G, env):
   return model, trainer.history
 
 
+def evaluate(G, env):
+  """--mode=eval: the Evaler over G.weightdir's G.model with the frozen
+  arbiter in G.arbiterdir; writes logdir/logger.pkl. Returns the Evaler
+  and its table, {'<split>:<u|p>:<metric>': (mean, std)}."""
+  from boxlcd_tpu_torch.research.runners import Evaler
+  evaler = Evaler(None, env, G)
+  return evaler, evaler.run()
+
+
 def main(argv=None):
   set_tf32(False)   # float32 is float32 on the card; bfloat16 is asked for
   G, env = parse_flags(argv)
@@ -117,7 +129,9 @@ def main(argv=None):
     collect(env_fn(G), G)
   elif G.mode == 'train':
     train(G, env)
-  elif G.mode in ('eval', 'viz', 'fiddle'):
+  elif G.mode == 'eval':
+    evaluate(G, env)
+  elif G.mode in ('viz', 'fiddle'):
     raise NotImplementedError(f'mode={G.mode} is not ported yet')
   else:
     raise ValueError(f'unknown mode {G.mode}')

@@ -123,17 +123,28 @@ class Net:
     direc = Path(direc)
     direc.mkdir(parents=True, exist_ok=True)
     path = direc / f'{self.name}.pkl'
-    blob = {'state_dict': {k: v.detach().cpu()
-                           for k, v in self.module.state_dict().items()},
-            'opt_state': _to_cpu(self.opt.state_dict()),
-            'step': int(self.step),
-            'gen_state': self.gen.get_state(),
-            'G': dict(self.G)}
-    tmp = direc / f'.{self.name}.pkl.tmp'
-    with open(tmp, 'wb') as f:
-      pickle.dump(blob, f)
-    os.replace(tmp, path)
+    write_atomic(path, {'state_dict': self.cpu_state_dict(),
+                        'opt_state': _to_cpu(self.opt.state_dict()),
+                        'step': int(self.step),
+                        'gen_state': self.gen.get_state(),
+                        'G': dict(self.G)})
     print('SAVED MODEL', path)
+
+  def cpu_state_dict(self):
+    return {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
+
+  def save_frozen(self, direc):
+    """The frozen net that `runners/trainer.load_arbiter` (and the learned
+    env, for the object localizer) finds by its `*.frozen.pkl` name: the
+    weights, G and the model's kind (its class name), written atomically.
+    The port's own format, not the JAX package's flax bytes."""
+    direc = Path(direc)
+    direc.mkdir(parents=True, exist_ok=True)
+    path = direc / f'{self.name}.frozen.pkl'
+    write_atomic(path, {'state_dict': self.cpu_state_dict(),
+                        'G': dict(self.G), 'kind': self.name})
+    print('SAVED FROZEN', path)
+    return path
 
   def load(self, direc, resume=True):
     """Restore the weights; with resume=True also the optimizer state, the
@@ -158,6 +169,16 @@ class Net:
   def evaluate(self, writer, batch, itr, arbiter=None):
     """Override in AE/VideoModel bases; default no-op."""
     return {}
+
+
+def write_atomic(path, blob):
+  """Pickle `blob` to `path` through a temporary file in the same folder:
+  a torn pickle would poison every later load."""
+  path = Path(path)
+  tmp = path.with_name(f'.{path.name}.tmp')
+  with open(tmp, 'wb') as f:
+    pickle.dump(blob, f)
+  os.replace(tmp, path)
 
 
 def _to_cpu(obj):

@@ -3,8 +3,9 @@
 The port of research/nets/autoencoders/_base.py: the same encode /
 decode_mode / decode / sample surface, with evaluation that re-renders
 proprio predictions through the env's batched teleport + raster on the
-device (`Env.teleport` + `Env.observe`: the lcd raster kernel on the card).
-Arbiter-based metrics wait for the arbiters' port.
+device (`Env.teleport` + `Env.observe`: the lcd raster kernel on the card),
+and, handed a frozen ArbiterAE (`runners/trainer.load_arbiter`), the FID of
+samples and the feature cosdist of reconstructions.
 """
 from __future__ import annotations
 
@@ -30,9 +31,16 @@ def re_render_proprio(env, proprio):
   return Env.observe(env, st)['lcd']
 
 
-def no_arbiter(arbiter):
-  if arbiter is not None:
-    raise NotImplementedError('arbiter metrics are not ported yet')
+def cosdist(a, b):
+  """Mean cosine distance of paired feature rows."""
+  cos = (a * b).sum(-1) / (torch.linalg.norm(a, dim=-1)
+                           * torch.linalg.norm(b, dim=-1) + 1e-8)
+  return (1 - cos).mean()
+
+
+def lcd_hw(G):
+  """The frame size a model is built for, as the JAX init_params take it."""
+  return G.lcd_base, int(G.lcd_base * G.wh_ratio)
 
 
 class Autoencoder(Net):
@@ -52,9 +60,10 @@ class Autoencoder(Net):
 
   @torch.no_grad()
   def evaluate(self, writer, batch, itr, arbiter=None):
-    """Prompted recon metrics and, with a writer, the truth/recon/error
+    """Prompted recon metrics; with an ArbiterAE (a MultiStepArbiter is
+    ignored) the FID of prior samples against the batch and the feature
+    cosdist of the reconstructions; with a writer, the truth/recon/error
     grids and the proprio re-render (reference _base.py:44-132)."""
-    no_arbiter(arbiter)
     metrics = {}
     batch = to_device(batch, self.device)
     flat = self.prep({k: v for k, v in batch.items() if k != 'action'})
@@ -70,6 +79,14 @@ class Autoencoder(Net):
         torch.linalg.norm(pt, dim=-1) * torch.linalg.norm(pp, dim=-1) + 1e-8)
     metrics['eval/proprio_cosdist'] = 1 - cos.mean()
     sample = self.sample(self.gen, flat['lcd'].shape[0])
+    if arbiter is not None and arbiter['kind'] == 'ArbiterAE':
+      sq = lambda x: x[:, 0] if (x.dim() == 4 and x.shape[1] == 1) else x
+      feats = lambda lcd, proprio: arbiter['fn'](
+          {'lcd': sq(lcd), 'proprio': proprio})[0]
+      saz = feats(sample['lcd'], sample['proprio'])
+      taz = feats(lcd_t, pt)
+      metrics['eval/fid'] = M.fid(saz, taz)
+      metrics['eval/cosdist'] = cosdist(feats(lcd_p, pp), taz)
     if writer is not None:
       k = min(8, lcd_t.shape[0])
       img_t = lcd_t[:k, 0].cpu().numpy()

@@ -9,7 +9,8 @@ flax's eps = 1e-6.
 
 Convolutions run NCHW inside; `Conv` pads as flax's 'SAME' does, which
 for a stride-2 convolution on an even size pads (0 before, 1 after), not
-torch's symmetric `padding=1`.
+torch's symmetric `padding=1`; `ConvTranspose` is flax's transposed
+convolution (its kernel flipped, its padding `jax.lax.conv_transpose`'s).
 """
 from __future__ import annotations
 
@@ -71,6 +72,45 @@ class Conv(nn.Conv2d):
     if ph[0] == ph[1] and pw[0] == pw[1]:
       return F.conv2d(x, self.weight, self.bias, s, (ph[0], pw[0]))
     return F.conv2d(F.pad(x, (*pw, *ph)), self.weight, self.bias, s)
+
+
+def conv_transpose_padding(k, s, padding):
+  """jax.lax.conv_transpose's (before, after) padding of one spatial axis:
+  the input is dilated by the stride, padded so, and cross-correlated with
+  the (unflipped) kernel."""
+  if padding == 'SAME':
+    pad_len = k + s - 2
+    pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+  elif padding == 'VALID':
+    pad_len = k + s - 2 + max(k - s, 0)
+    pad_a = k - 1
+  else:
+    raise ValueError(f'padding {padding!r}')
+  return pad_a, pad_len - pad_a
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+  """flax nn.ConvTranspose (transpose_kernel=False) on NCHW tensors.
+
+  flax cross-correlates the stride-dilated, padded input with its HWIO
+  kernel; torch's transposed convolution correlates with the kernel
+  flipped. So the weight (in, out, kh, kw) is the flax kernel flipped in
+  both spatial axes (`convert.py` keys that rule on the `ConvTranspose_<i>`
+  name), and the padding is flax's, `conv_transpose_padding` per axis, as
+  torch's k - 1 - p on both sides. Every kernel the models use (4, 6, 8 at
+  stride 2, 'SAME' and 'VALID') pads both sides alike; another raises."""
+
+  def __init__(self, in_ch, out_ch, k, stride=2, padding='SAME'):
+    ks = (k, k) if isinstance(k, int) else tuple(k)
+    pads = [conv_transpose_padding(kk, stride, padding) for kk in ks]
+    if any(a != b for a, b in pads):
+      raise ValueError(f'flax pads kernel {ks} at stride {stride} '
+                       f'{padding!r} unevenly: {pads}')
+    super().__init__(in_ch, out_ch, ks, stride,
+                     padding=tuple(kk - 1 - a for (a, _), kk in zip(pads, ks)))
+    # flax's lecun-normal over the kernel's fan in (kh * kw * in)
+    lecun_normal_(self.weight, in_ch * ks[0] * ks[1])
+    nn.init.zeros_(self.bias)
 
 
 def LayerNorm(n):
@@ -186,6 +226,66 @@ class BinaryHead(nn.Module):
 
   def forward(self, x):
     return dists.Bernoulli(self.Dense_0(x))
+
+
+class ConvEmbed(nn.Module):
+  """Frame -> flat embedding via a small conv stack (reference:
+  common.py:156-170): x (BS, LEN, lcd_h * lcd_w) -> (BS, LEN, lcd_h *
+  lcd_w). One output channel, so NCHW and NHWC flatten alike."""
+
+  def __init__(self, lcd_h, lcd_w):
+    super().__init__()
+    self.lcd_h, self.lcd_w = lcd_h, lcd_w
+    self.Conv_0 = Conv(1, 64, 3)
+    self.Conv_1 = Conv(64, 1, 3)
+
+  def forward(self, x):
+    BS, LEN, _ = x.shape
+    h = x.reshape(BS * LEN, 1, self.lcd_h, self.lcd_w)
+    h = self.Conv_1(F.relu(self.Conv_0(h)))
+    return h.reshape(BS, LEN, -1)
+
+
+class ConvBinHead(nn.Module):
+  """Latent -> frame logits via a deconv stack (reference:
+  common.py:132-154): x (BS, LEN, in_n) -> Bernoulli over (BS, LEN,
+  16 * 16 * wh_ratio) frames, 1x1 -> (4, 4 * wh_ratio) -> x2 -> x2."""
+
+  def __init__(self, in_n, wh_ratio):
+    super().__init__()
+    self.ConvTranspose_0 = ConvTranspose(in_n, 64, (4, int(wh_ratio * 4)),
+                                         padding='VALID')
+    self.ConvTranspose_1 = ConvTranspose(64, 64, 4)
+    self.ConvTranspose_2 = ConvTranspose(64, 1, 4)
+
+  def forward(self, x):
+    BS, LEN, E = x.shape
+    h = F.relu(self.ConvTranspose_0(x.reshape(BS * LEN, E, 1, 1)))
+    h = F.relu(self.ConvTranspose_1(h))
+    h = self.ConvTranspose_2(h)
+    return dists.Bernoulli(h.reshape(BS, LEN, -1))
+
+
+class MultiHead(nn.Module):
+  """Joint lcd (Bernoulli) + proprio (MDN) head (reference:
+  common.py:185-206). x (..., x_n) -> {'lcd': Bernoulli over `split`
+  outputs, 'proprio': MDN over out_n - split}."""
+
+  def __init__(self, x_n, in_n, out_n, split, mdn_k=5, min_std=1e-4,
+               conv_io=0, wh_ratio=1.0):
+    super().__init__()
+    self.conv_io = conv_io
+    self.Dense_0 = Dense(x_n, 2 * in_n)
+    if conv_io:
+      self.ConvBinHead_0 = ConvBinHead(in_n, wh_ratio)
+    else:
+      self.BinaryHead_0 = BinaryHead(in_n, split)
+    self.MDNHead_0 = MDNHead(in_n, out_n - split, mdn_k, min_std)
+
+  def forward(self, x):
+    xb, xs = self.Dense_0(x).chunk(2, -1)
+    head = self.ConvBinHead_0 if self.conv_io else self.BinaryHead_0
+    return {'lcd': head(xb), 'proprio': self.MDNHead_0(xs)}
 
 
 class ResBlock(nn.Module):

@@ -7,10 +7,15 @@ params)`), into a `state_dict` for the port's module of the same model
 submodules carry the flax names, so the mapping is by name:
   - Dense `kernel` (in, out)      -> Linear `weight` (out, in)
   - Conv `kernel` HWIO            -> Conv2d `weight` OIHW
+  - ConvTranspose `kernel` HWIO   -> ConvTranspose2d `weight` (in, out,
+    kh, kw), flipped in both spatial axes (`common.ConvTranspose`); the
+    rule is keyed on the module's flax name, `ConvTranspose_<i>`
   - LayerNorm/GroupNorm `scale`   -> `weight`
   - `bias`, `embedding`, `pos_emb` as they are.
-Only this direction is provided. Loading a JAX checkpoint (`.pkl`) would
-need flax's msgpack serialization and is not supported.
+Only this direction is provided. Loading a JAX checkpoint (`.pkl`) or a
+JAX frozen arbiter (`*.frozen.pkl`, flax msgpack bytes) would need flax's
+msgpack serialization and is not supported: the port's frozen arbiters
+are its own (`autoencoders/_base.save_frozen`).
 """
 from __future__ import annotations
 
@@ -18,11 +23,13 @@ import numpy as np
 import torch
 
 
-def _leaf(name, value):
+def _leaf(module, name, value):
   value = np.asarray(value)
   if name == 'kernel':
     if value.ndim == 2:
       return 'weight', value.T
+    if value.ndim == 4 and module.startswith('ConvTranspose_'):
+      return 'weight', value[::-1, ::-1].transpose(2, 3, 0, 1)
     if value.ndim == 4:
       return 'weight', value.transpose(3, 2, 0, 1)
     raise ValueError(f'kernel of rank {value.ndim}')
@@ -37,15 +44,15 @@ def flax_to_state_dict(params):
     params = params['params']
   out = {}
 
-  def walk(tree, prefix):
+  def walk(tree, prefix, module):
     for name, value in tree.items():
       if isinstance(value, dict):
-        walk(value, f'{prefix}{name}.')
+        walk(value, f'{prefix}{name}.', name)
       else:
-        key, arr = _leaf(name, value)
+        key, arr = _leaf(module, name, value)
         out[prefix + key] = torch.as_tensor(np.array(arr, order='C'))
 
-  walk(params, '')
+  walk(params, '', '')
   return out
 
 

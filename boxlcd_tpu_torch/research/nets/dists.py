@@ -28,9 +28,13 @@ class Bernoulli:
     return torch.sigmoid(self.logits)
 
   def log_prob(self, x):
-    # -softplus(-l)*x - softplus(l)*(1-x), numerically stable
-    return -torch.clamp(self.logits, min=0) + self.logits * x \
-        - torch.log1p(torch.exp(-torch.abs(self.logits)))
+    # -softplus(-l)*x - softplus(l)*(1-x), numerically stable. At l == 0
+    # (a zero-initialised head over dead ReLUs gives it exactly) the
+    # subgradients are the JAX form's: max splits the tie, |l| has slope 1
+    # (clamp and abs would give 1 and 0, a gradient off by 1 there)
+    l = self.logits
+    return -torch.maximum(l, torch.zeros_like(l)) + l * x \
+        - torch.log1p(torch.exp(-torch.where(l >= 0, l, -l)))
 
   def sample(self, gen=None, temp=1.0, u=None):
     """Bits u < sigmoid(logits / temp); u uniform in [0, 1) from `gen`

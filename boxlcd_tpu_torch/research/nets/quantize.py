@@ -43,7 +43,8 @@ def rnld(z, gen=None, noise=True, noise_level=0.25, u=None):
     zn = z + noise_level * (2 * u - 1)
   else:
     zn = z
-  idxs = torch.bucketize(zn, zn.new_tensor([-0.5, 0.0, 0.5]), right=True)
+  idxs = torch.bucketize(zn.contiguous(), zn.new_tensor([-0.5, 0.0, 0.5]),
+                         right=True)
   z_q = zn.new_tensor([-0.75, -0.25, 0.25, 0.75])[idxs]
   z_q = z_q.detach() + z - z.detach()
   return z_q, idxs

@@ -1,12 +1,13 @@
 """VideoModel base: sampling + evaluation (the port of
 research/nets/video_models/_base.py).
 
-The prompted evaluation (SSIM/PSNR, proprio log-MSE) with green/red
-prompt-boundary annotated videos, and the proprio re-render through the
-env's batched teleport + raster on the device (the lcd raster kernel on the
-card). Arbiter-based metrics (FVD, precision/recall, action log-MSE,
-feature cosdist) wait for the arbiters' port and raise when an arbiter is
-passed.
+The unprompted / prompted evaluation protocol: with a frozen
+MultiStepArbiter (`runners/trainer.load_arbiter`), the FVD, precision /
+recall / F1 and action log-MSE of samples drawn with random actions, and
+the action log-MSEs and feature cosdist of prompted samples; SSIM/PSNR and
+proprio log-MSE of the prompted ones; green/red prompt-boundary annotated
+videos; and the proprio re-render through the env's batched teleport +
+raster on the device (the lcd raster kernel on the card).
 """
 from __future__ import annotations
 
@@ -17,18 +18,39 @@ from boxlcd_tpu_torch.research import metrics as M
 from boxlcd_tpu_torch.research import utils
 from boxlcd_tpu_torch.research.nets._base import Net, to_device
 from boxlcd_tpu_torch.research.nets.autoencoders._base import (
-    no_arbiter, re_render_proprio)
+    cosdist, re_render_proprio)
 
 GREEN = np.array([0.0, 1.0, 0.0])
 RED = np.array([1.0, 0.0, 0.0])
 
 
 def chop(x, window):
-  """Non-overlapping window chop along time (reference: evaler.py:56-62)."""
+  """Non-overlapping window chop along time (reference: evaler.py:56-62).
+  A clip shorter than the window gives no window: (0, window, ...)."""
   rem = x.shape[1] % window
   if rem:
     x = x[:, :-rem]
   return x.reshape(-1, window, *x.shape[2:])
+
+
+def uniform_actions(gen, shape, device):
+  """Random actions, uniform in [-1, 1): the unprompted samples' actions."""
+  return torch.rand(shape, generator=gen, device=device) * 2 - 1
+
+
+def arbiter_feats(arbiter, batch, actions=None):
+  """(features, action log-MSE or None) of a (B, T, ...) clip batch through
+  a frozen arbiter, chopped to its window (reference: evaler.py:149-198):
+  the arbiter's action predictions are scored against the actions used,
+  one a transition (acts[:, :-1] of each window)."""
+  aw = arbiter['window'] or batch['lcd'].shape[1]
+  clip = {'lcd': chop(batch['lcd'], aw), 'proprio': chop(batch['proprio'], aw)}
+  z, act_pred = arbiter['fn'](clip)
+  almse = None
+  if actions is not None and act_pred is not None:
+    act = chop(actions, aw)[:, :-1]
+    almse = torch.log(((act - act_pred) ** 2).mean())
+  return z, almse
 
 
 class VideoModel(Net):
@@ -69,16 +91,26 @@ class VideoModel(Net):
 
   @torch.no_grad()
   def evaluate(self, writer, batch, itr, arbiter=None):
-    no_arbiter(arbiter)
     metrics = {}
     batch = to_device(batch, self.device)
     n = min(self.G.video_n, batch['lcd'].shape[0])
     prompt_n = self.G.prompt_n
     T = self.block_size
     # --- unprompted, random actions (reference: _base.py:40-82)
-    rand_act = torch.rand((n, T, self.act_n), generator=self.gen,
-                          device=self.device) * 2 - 1
+    rand_act = uniform_actions(self.gen, (n, T, self.act_n), self.device)
     sample = self.sample(self.gen, n, action=rand_act)
+    if arbiter is not None:
+      burned = {k: v[:, prompt_n:] for k, v in sample.items()
+                if k in ('lcd', 'proprio')}
+      paz, almse = arbiter_feats(arbiter, burned, rand_act[:, prompt_n:])
+      tb = {k: v[:n, :T][:, prompt_n:] for k, v in batch.items()}
+      taz, _ = arbiter_feats(arbiter, tb)
+      metrics['eval/unprompted_fvd'] = float(M.fid(paz, taz))
+      if almse is not None:
+        metrics['eval/unprompted_action_log_mse'] = float(almse)
+      pr = M.precision_recall_f1(taz, paz)
+      for k, v in pr.items():
+        metrics[f'eval/unprompted_{k}'] = float(v)
     # --- prompted (reference: _base.py:97-157)
     prompts = {k: v[:n] for k, v in batch.items() if k != 'action'}
     action = batch['action'][:n, :T]
@@ -95,6 +127,18 @@ class VideoModel(Net):
     if self.env.pobs_size:  # passive envs have no proprio
       metrics['eval/prompted_proprio_log_mse'] = float(
           torch.log(((pt[:, prompt_n:] - pp[:, prompt_n:]) ** 2).mean()))
+    if arbiter is not None:
+      burned_act = action[:, prompt_n:]
+      paz, almse = arbiter_feats(arbiter, {'lcd': lcd_p[:, prompt_n:],
+                                           'proprio': pp[:, prompt_n:]},
+                                 burned_act)
+      taz, talmse = arbiter_feats(arbiter, {'lcd': lcd_t[:, prompt_n:],
+                                            'proprio': pt[:, prompt_n:]},
+                                  burned_act)
+      if almse is not None:
+        metrics['eval/prompted_action_log_mse'] = float(almse)
+        metrics['eval/prompted_true_action_log_mse'] = float(talmse)
+      metrics['eval/prompted_cosdist'] = float(cosdist(paz, taz))
     if writer is not None:
       utils.add_video(writer, 'eval/unprompted_lcd',
                       self._annot_video(sample['lcd'].cpu().numpy()), itr,

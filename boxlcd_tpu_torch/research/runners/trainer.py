@@ -2,28 +2,50 @@
 
 batch -> model.train_step -> periodic dry test batch + model.evaluate ->
 periodic save. Batches come from the host-side RolloutDataset; every dump
-of the logger's means is kept in `history` as (itr, {metric: mean}).
+of the logger's means is kept in `history` as (itr, {metric: mean}). A
+frozen arbiter in G.arbiterdir feeds `evaluate` (`load_arbiter`).
 """
 from __future__ import annotations
 
+import pickle
 import time
 from pathlib import Path
 
-import torch
-
 from boxlcd_tpu_torch.data.dataset import load_ds
 from boxlcd_tpu_torch.research import utils
+from boxlcd_tpu_torch.research.nets.autoencoders import (
+    ArbiterAE, MultiStepArbiter)
+from boxlcd_tpu_torch.utils import AttrDict
 
 
 def load_arbiter(G, env):
-  """None without a frozen arbiter (`*.frozen.pkl`) in G.arbiterdir; the
-  arbiters are not ported yet, so one that is there raises."""
+  """The first frozen arbiter (`*.frozen.pkl`, `Net.save_frozen`'s file) in
+  G.arbiterdir as {'fn', 'module', 'window', 'kind'}, or None without one.
+
+  A MultiStepArbiter's fn maps a (B, window, ...) clip batch to (features,
+  action predictions), for the video models; an ArbiterAE's maps frames to
+  (features, None), for the autoencoders (reference: trainer.py:20-52). It
+  runs on env's device. Any other kind raises."""
   arbdir = Path(G.arbiterdir)
   cands = sorted(arbdir.glob('*.frozen.pkl')) if arbdir.is_dir() else []
   if not cands:
     return None
-  raise NotImplementedError(
-      f'{cands[0]}: loading a frozen arbiter is not ported yet')
+  with open(cands[0], 'rb') as f:
+    blob = pickle.load(f)
+  kind = blob['kind']
+  aG = AttrDict(blob['G'])
+  if kind == 'MultiStepArbiter':
+    model = MultiStepArbiter(env, aG)
+    window, fn = int(aG.window), model.forward_frozen
+  elif kind == 'ArbiterAE':
+    model = ArbiterAE(env, aG)
+    window, fn = None, lambda batch: (model.encode(batch), None)
+  else:
+    raise ValueError(f'{cands[0]}: a frozen {kind} is not an arbiter')
+  model.module.load_state_dict(blob['state_dict'])
+  model.module.requires_grad_(False)
+  print('LOADED ARBITER', cands[0], kind)
+  return {'fn': fn, 'module': model.module, 'window': window, 'kind': kind}
 
 
 class Trainer:

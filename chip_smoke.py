@@ -13,7 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. lcd raster vs plain: the per-frame LCD raster kernel against its plain
      torch version, bit for bit, on Urchin, LuxoCube, Object3, Bounce2 and
      CrabCube (32x32: 18 bodies, the NV = 8 instantiation) at B = 1000,
-     4096 and 262144, from reset states after 3 plain-physics steps and
+     4096 and 65536, from reset states after 3 plain-physics steps and
      from random poses that put bodies partly outside the frame; then its
      times at the VecEnv's 8 worlds, the tripwire's 16 frames (beside the
      launch floor: a one-element launch's time) and at 4000+ worlds, and
@@ -47,19 +47,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      tripwire, no solver kernel); the barrels must load and hold finite,
      non-blank data. Then the device's busy share of a whole call and the
      per-layer times of one dispatch;
-  9. per-step path: `fill_barrels` with collect_mega=0 at 1000 worlds x 25
+  9. per-step path: `fill_barrels` with collect_mega=0 at 1000 worlds x 10
      steps (the lcd raster launches once a step), and the per-layer times of
      one step at 4000 worlds;
   10. solver path: bench.py's BENCH_SOLVER=sub line, Urchin, 4096 worlds, at
-     50 of its 100 steps, of step_world_batch with the substep kernel, then
-     Env.observe, launches counted as in phase 8 (substep kernel 50 x
-     substeps, lcd raster 50, no other); the final state equal to the
+     25 of its 100 steps, of step_world_batch with the substep kernel, then
+     Env.observe, launches counted as in phase 8 (substep kernel 25 x
+     substeps, lcd raster 25, no other); the final state equal to the
      plain path's bit for bit; the busy share, the per-layer times of one
      step, and both solver kernels' times beside their bounds and plain
      versions, their launch geometry, occupancy and block-size times;
   11. VecEnv: Luxo in body mode, 8 envs, ep_len + 1 steps (autoreset runs;
-     ep_len cut from 100 to 25), then LuxoCube in cube mode; numpy observations, the lcd raster at least
-     once a step, timeouts on ep_len;
+     ep_len cut from 100 to 10), then LuxoCube in cube mode; numpy
+     observations, the lcd raster at least once a step, timeouts on ep_len;
   12. world models on Urchin (16x32, ep_len 100) at research/scripts/
      kicker.py's widths: collection through the port's research.main
      (--mode=collect, native barrels: 2 train, 1 test, one megakernel
@@ -75,7 +75,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      model (the lcd raster launches twice in each, for the proprio
      re-render); FBT.sample cached and uncached from one generator state,
      bit for bit equal, with frames/s; the card's BVAE and FBT forwards and
-     losses against the same modules on the CPU (same state dict).
+     losses against the same modules on the CPU (same state dict);
+  13. evaluation, on phase 12's data, BVAE and FBT: the MultiStepArbiter
+     (default widths, window 47 = FBT's 50 - prompt 3, so a burned sample
+     is one clip) and the ArbiterAE (window 5) trained 300 steps, VAE,
+     RNLDA (kicker.py's preset) and VQVAE 100 steps each, all through
+     research.main's Trainer (logged losses finite, the last below the
+     first; parameters, ms a step, frames/s, peak memory); UrchinCube
+     collected (1 + 1 native barrels, launches counted) and the
+     ObjectLocalizer trained 300 steps on it (its error on a test batch,
+     its frozen file read back); the BVAE's evaluate with the ArbiterAE
+     (FID, cosdist) and the FBT's with the MultiStepArbiter (FVD,
+     precision/recall/F1, action log-MSEs, cosdist), each finite with 2
+     lcd raster launches; --mode=eval over the FBT (5 reps, eval_n 512),
+     its logger.pkl holding the JAX Evaler's keys, all finite, with its
+     seconds a rep and samples/s; the arbiters' and the localizer's
+     outputs and losses on the card against the CPU (phase 12's gates).
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -87,6 +102,7 @@ import argparse
 import dataclasses
 import json
 import math
+import pickle
 import re
 import subprocess
 import sys
@@ -110,8 +126,11 @@ from boxlcd_tpu_torch.engine.spec import CIRCLE
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
 from boxlcd_tpu_torch.research import main as research_main
-from boxlcd_tpu_torch.research.nets._base import autocast
+from boxlcd_tpu_torch.research.nets._base import autocast, to_device
+from boxlcd_tpu_torch.research.nets.autoencoders import (
+    ArbiterAE, MultiStepArbiter, ObjectLocalizer)
 from boxlcd_tpu_torch.research.nets.autoencoders.bvae import BVAE
+from boxlcd_tpu_torch.research.runners.trainer import load_arbiter
 from boxlcd_tpu_torch.research.nets.video_models.fbt import FBT
 from boxlcd_tpu_torch.research.wrappers import VecEnv
 from boxlcd_tpu_torch.utils import AttrDict, set_tf32
@@ -119,12 +138,12 @@ from boxlcd_tpu_torch.utils import AttrDict, set_tf32
 ITERS = {'vel_iters': 8, 'pos_iters': 4}     # bench.py's headline setting
 CHECK_ENVS = [('Urchin', 32, 16), ('LuxoCube', 24, 16), ('Object3', 16, 16),
               ('Bounce2', 16, 16), ('CrabCube', 32, 32)]
-CHECK_BATCHES = [1000, 4096, 262144]
+CHECK_BATCHES = [1000, 4096, 65536]         # cut in depth from 262144
 MAIN_ENV, MAIN_BATCH, MAIN_BARRELS = 'Urchin', 4000, 4
 TRIPWIRE_FRAMES = 16                        # the main path's lcd raster call
 VEC_BATCH = 8                               # the VecEnv's lcd raster call
 TRAJ_SHAPES = [(2, 1000), (64, 4096)]       # (T, B), up to 262144 frames
-PER_STEP_BATCH, PER_STEP_T = 1000, 25       # the per-step path, cut in depth
+PER_STEP_BATCH, PER_STEP_T = 1000, 10       # the per-step path, cut in depth
 MEGA_CHECK_B, MEGA_CHECK_T = 1024, 34       # tests/test_mega.py's shape
 # tests/test_mega.py's FIELDS and BOUNDS: (median, tail threshold, tail
 # fraction, least sleep share of the plain version)
@@ -143,10 +162,10 @@ VEL_FIELDS = ['v', 'w', 'c', 'a']           # test_pallas: within 1e-4
 SUB_FIELDS = ['v', 'w', 'c', 'a', 'wc_imp', 'pc_imp', 'j_imp', 'j_mot',
               'j_lim', 'sleep_time']        # test_pallas: within 2e-3
 SOLVER_BATCH = 4096                         # bench.py's BENCH_SOLVER=sub line
-SOLVER_STEPS = 50                           # its 100 steps, cut in depth
+SOLVER_STEPS = 25                           # its 100 steps, cut in depth
 VEC_ENV, VEC_CUBE_ENV, VEC_ENVS = 'Luxo', 'LuxoCube', 8   # define_config:84
 VEC_CUBE_STEPS = 5
-VEC_EP_LEN = 25                             # ep_len 100, cut in depth
+VEC_EP_LEN = 10                             # ep_len 100, cut in depth
 WM_BARRELS = {'train': 2, 'test': 1}       # the world models' data, Urchin
 WM_COMMON = ['--env=Urchin', '--bs=64', '--lr=5e-4', '--vel_iters=8',
              '--pos_iters=4']               # kicker.py's --lr default
@@ -170,6 +189,21 @@ WM_LOGIT_TOL, WM_LOSS_RTOL = 2e-4, 1e-6
 # same batch: within 1e-3 relative (bfloat16 keeps 8 significant bits, a
 # rounding of 3.9e-3; a mean loss averages it down: 8.0e-5 to 1.2e-4 read)
 WM_BF16_LOSS_RTOL = 1e-3
+# phase 13, evaluation: on phase 12's Urchin data, BVAE and FBT
+EV_ARBITER = ['--window=47']    # default widths (hidden 128, nfilter 64);
+# window = FBT's 50 - prompt 3, so each burned sample is one arbiter clip:
+# kicker.py's --window=50 would chop 47 burned frames into no clip
+EV_ARBITER_AE = ['--window=5']
+EV_AES = {'VAE': ['--window=5'],
+          'RNLDA': ['--hidden_size=64', '--vqK=64', '--vqD=8',
+                    '--nfilter=16', '--window=5'],   # kicker.py:22
+          'VQVAE': ['--window=5']}  # defaults; window 5 as the other AEs
+EV_ARB_STEPS, EV_AE_STEPS = 300, 100       # kicker runs 3e4
+EV_LOC_ENV, EV_LOC_STEPS = 'UrchinCube', 300   # the localizer needs an object
+EV_LOC_BARRELS = {'train': 1, 'test': 1}
+EV_EVAL_N, EV_REPS = 512, 5                # G.eval_n 2048, cut; the reps
+EV_CPU_BATCH = 16                          # the card-vs-CPU batch, episodes
+EV_FBT = ['--window=50', '--prompt_n=3']   # phase 12's FBT
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 FP32_FLOPS = 67e12                          # H100 SXM, outside the tensor cores
 
@@ -404,7 +438,7 @@ def kernel_phase(dev):
                        f'plain version')
 
   # times at the VecEnv's and the main path's shapes, and at 4096 and
-  # 262144 worlds
+  # max(CHECK_BATCHES) worlds
   env = _env(MAIN_ENV, dev)
   render = cuda_raster.make_batched_render(env.spec, env.lcd_w, env.lcd_h)
   times = {}
@@ -1377,9 +1411,10 @@ class RecordingWriter:
     pass
 
 
-def _losses(history, label):
-  """The logged total losses; all finite and the last below the first."""
-  losses = [float(line['loss/total']) for _, line in history]
+def _losses(history, label, key='loss/total'):
+  """The logged losses under `key`; all finite (callers check that the last
+  is below the first)."""
+  losses = [float(line[key]) for _, line in history]
   log(f'[wm] {label} logged losses at steps '
       f'{[itr for itr, _ in history]}: {losses}')
   if len(losses) < 2 or not np.isfinite(losses).all():
@@ -1549,116 +1584,116 @@ def _card_vs_cpu(bvae, fbt, bbatch, fbatch):
   return dict(errs, tf32_control=control, bf16_vs_float32=bf16_errs)
 
 
-def world_model_phase(dev, smi):
+def world_model_phase(dev, smi, tmp):
   """collect -> BVAE -> FBT -> KV-cached sampling on the card, through the
-  port's research.main at kicker.py's widths on Urchin."""
+  port's research.main at kicker.py's widths on Urchin, in `tmp` (data/,
+  bvae/, fbt/: the evaluation phase reads them). Returns the results and
+  (bvae, fbt)."""
   out = {}
-  with tempfile.TemporaryDirectory() as tmp:
-    tmp = Path(tmp)
-    data, bdir = tmp / 'data', tmp / 'bvae'
-    out['collect'] = _wm_collect(data)
-    out.update(_wm_writes(dev, smi, tmp))
+  data, bdir = tmp / 'data', tmp / 'bvae'
+  out['collect'] = _wm_collect(data)
+  out.update(_wm_writes(dev, smi, tmp))
 
-    flags = [f'--datadir={data}', f'--total_itr={WM_STEPS}',
-             f'--log_n={WM_LOG_N}', *WM_COMMON]
-    bvae, bhist, bs = _wm_train(['--model=BVAE', f'--logdir={bdir}',
-                                 *flags, *WM_BVAE])
-    fbt, fhist, fs = _wm_train([
-        '--model=FBT', f'--logdir={tmp / "fbt"}', f'--weightdir={bdir}',
-        '--device_dataset=1', f'--steps_per_dispatch={WM_LOG_N}', *flags,
-        *WM_FBT])
-    fbt2, f2hist, f2s = _wm_train([
-        '--model=FBT', f'--logdir={tmp / "fbt_trainer"}',
-        f'--weightdir={bdir}', '--device_dataset=0', f'--datadir={data}',
-        f'--total_itr={WM_TRAINER_FBT_STEPS}',
-        f'--log_n={WM_TRAINER_FBT_STEPS}', *WM_COMMON, *WM_FBT])
-    losses = {'bvae': _losses(bhist, 'BVAE (Trainer)'),
-              'fbt': _losses(fhist, 'FBT (device dataset)'),
-              'fbt_trainer': _losses(f2hist, 'FBT (Trainer)')}
-    for k in ('bvae', 'fbt'):
-      if not losses[k][-1] < losses[k][0]:
-        raise RuntimeError(f'{k}: the last logged loss is not below the '
-                           f'first: {losses[k]}')
-    log(f'[wm] params: BVAE {bvae.num_vars:,}, FBT {fbt.num_vars:,}; train '
-        f'wall BVAE {bs:.1f} s, FBT {fs:.1f} s ({WM_STEPS} steps each, '
-        f'evaluates and saves included), FBT Trainer {f2s:.1f} s')
+  flags = [f'--datadir={data}', f'--total_itr={WM_STEPS}',
+           f'--log_n={WM_LOG_N}', *WM_COMMON]
+  bvae, bhist, bs = _wm_train(['--model=BVAE', f'--logdir={bdir}',
+                               *flags, *WM_BVAE])
+  fbt, fhist, fs = _wm_train([
+      '--model=FBT', f'--logdir={tmp / "fbt"}', f'--weightdir={bdir}',
+      '--device_dataset=1', f'--steps_per_dispatch={WM_LOG_N}', *flags,
+      *WM_FBT])
+  fbt2, f2hist, f2s = _wm_train([
+      '--model=FBT', f'--logdir={tmp / "fbt_trainer"}',
+      f'--weightdir={bdir}', '--device_dataset=0', f'--datadir={data}',
+      f'--total_itr={WM_TRAINER_FBT_STEPS}',
+      f'--log_n={WM_TRAINER_FBT_STEPS}', *WM_COMMON, *WM_FBT])
+  losses = {'bvae': _losses(bhist, 'BVAE (Trainer)'),
+            'fbt': _losses(fhist, 'FBT (device dataset)'),
+            'fbt_trainer': _losses(f2hist, 'FBT (Trainer)')}
+  for k in ('bvae', 'fbt'):
+    if not losses[k][-1] < losses[k][0]:
+      raise RuntimeError(f'{k}: the last logged loss is not below the '
+                         f'first: {losses[k]}')
+  log(f'[wm] params: BVAE {bvae.num_vars:,}, FBT {fbt.num_vars:,}; train '
+      f'wall BVAE {bs:.1f} s, FBT {fs:.1f} s ({WM_STEPS} steps each, '
+      f'evaluates and saves included), FBT Trainer {f2s:.1f} s')
 
-    # precompute_z over the train barrels, its peak memory
-    ds = DeviceDataset(data / 'train', device=dev)
+  # precompute_z over the train barrels, its peak memory
+  ds = DeviceDataset(data / 'train', device=dev)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  before = torch.cuda.memory_allocated()
+  t0 = time.perf_counter()
+  z = fbt.precompute_z(ds.data, unpack=ds.unpack_lcd)
+  torch.cuda.synchronize()
+  pz_ms = (time.perf_counter() - t0) * 1e3
+  pz_peak = torch.cuda.max_memory_allocated()
+  log(f'[wm] precompute_z: {ds.n_episodes} episodes x {ds.ep_len} frames '
+      f'in {pz_ms:.1f} ms, peak {pz_peak / 2**20:.1f} MiB '
+      f'({before / 2**20:.1f} MiB before) on {smi}')
+
+  # ms a train step at the full widths
+  gen = torch.Generator(device=dev).manual_seed(0)
+  zdata = {'z': z, 'action': ds.data['action']}
+  bb, bw, fb, fw = bvae.G.bs, bvae.G.window, fbt.G.bs, fbt.G.window
+  bbatch = ds.sample(gen, bb, bw)
+  steps = {}
+  for prec in ('float32', 'bfloat16'):
+    steps[f'bvae_{prec}'] = _step_times(
+        f'BVAE update, {prec} (bs {bb} x window {bw})',
+        lambda: bvae.update(bbatch, gen, precision=prec), bb * bw, smi)
+    run = make_device_trainer(fbt, ds, fb, fw, 1, matmul_precision=prec)
+    steps[f'fbt_{prec}'] = _step_times(
+        f'FBT device-trainer step, {prec} (bs {fb} x window {fw}, batch '
+        f'gather included)', lambda: run(gen, zdata), fb * fw, smi)
+
+  # evaluate: the proprio re-render launches the lcd raster
+  evals = {}
+  for name, model in (('bvae', bvae), ('fbt', fbt)):
+    batch = next(RolloutDataset(data / 'test', window=model.G.window)
+                 .batches(model.G.bs))
+    writer = RecordingWriter()
+    _zero_launches()
+    metrics = model.evaluate(writer, batch, WM_STEPS)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
+    launches = _launches()
+    log(f'[wm] {name} evaluate: {metrics}; launches {launches}')
+    if launches != _expect(lcd_raster=2):
+      raise RuntimeError(f'{name} evaluate launches {launches}')
+    evals[name] = dict(metrics=metrics, launches=launches)
+
+  # KV-cached vs uncached sampling from one generator state; each path
+  # warmed once (the float64 copy is made on the first call), the second
+  # reading of each kept
+  g = torch.Generator(device=dev).manual_seed(7)
+  state = g.get_state()
+  samples, sample_ms = {}, {}
+  for use_cache in (True, False, True, False):
+    g.set_state(state)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    z = fbt.precompute_z(ds.data, unpack=ds.unpack_lcd)
+    samples[use_cache] = fbt.sample(g, WM_SAMPLE_N, use_cache=use_cache)
     torch.cuda.synchronize()
-    pz_ms = (time.perf_counter() - t0) * 1e3
-    pz_peak = torch.cuda.max_memory_allocated()
-    log(f'[wm] precompute_z: {ds.n_episodes} episodes x {ds.ep_len} frames '
-        f'in {pz_ms:.1f} ms, peak {pz_peak / 2**20:.1f} MiB '
-        f'({before / 2**20:.1f} MiB before) on {smi}')
+    sample_ms[use_cache] = (time.perf_counter() - t0) * 1e3
+  for k in samples[True]:
+    if not torch.equal(samples[True][k], samples[False][k]):
+      raise RuntimeError(f'cached and uncached samples differ in {k}')
+  frames = WM_SAMPLE_N * fbt.block_size
+  sample_dev = {c: profiled(lambda: fbt.sample(g, WM_SAMPLE_N,
+                                               use_cache=c), 1)
+                for c in (True, False)}
+  log(f'[wm] FBT.sample n={WM_SAMPLE_N} x {fbt.block_size}: cached '
+      f'{sample_ms[True]:.1f} ms ({frames * 1e3 / sample_ms[True]:.1f} '
+      f'frames/s), uncached {sample_ms[False]:.1f} ms '
+      f'({frames * 1e3 / sample_ms[False]:.1f} frames/s), warm, float64 '
+      f'serving (its copy made before), on {smi}; '
+      f'bit for bit equal; device (profiler) cached '
+      f'{_fmt(sample_dev[True][0])} in {sample_dev[True][1]:.0f} events, '
+      f'uncached {_fmt(sample_dev[False][0])} in '
+      f'{sample_dev[False][1]:.0f} events')
 
-    # ms a train step at the full widths
-    gen = torch.Generator(device=dev).manual_seed(0)
-    zdata = {'z': z, 'action': ds.data['action']}
-    bb, bw, fb, fw = bvae.G.bs, bvae.G.window, fbt.G.bs, fbt.G.window
-    bbatch = ds.sample(gen, bb, bw)
-    steps = {}
-    for prec in ('float32', 'bfloat16'):
-      steps[f'bvae_{prec}'] = _step_times(
-          f'BVAE update, {prec} (bs {bb} x window {bw})',
-          lambda: bvae.update(bbatch, gen, precision=prec), bb * bw, smi)
-      run = make_device_trainer(fbt, ds, fb, fw, 1, matmul_precision=prec)
-      steps[f'fbt_{prec}'] = _step_times(
-          f'FBT device-trainer step, {prec} (bs {fb} x window {fw}, batch '
-          f'gather included)', lambda: run(gen, zdata), fb * fw, smi)
-
-    # evaluate: the proprio re-render launches the lcd raster
-    evals = {}
-    for name, model in (('bvae', bvae), ('fbt', fbt)):
-      batch = next(RolloutDataset(data / 'test', window=model.G.window)
-                   .batches(model.G.bs))
-      writer = RecordingWriter()
-      _zero_launches()
-      metrics = model.evaluate(writer, batch, WM_STEPS)
-      torch.cuda.synchronize()
-      launches = _launches()
-      log(f'[wm] {name} evaluate: {metrics}; launches {launches}')
-      if launches != _expect(lcd_raster=2):
-        raise RuntimeError(f'{name} evaluate launches {launches}')
-      evals[name] = dict(metrics=metrics, launches=launches)
-
-    # KV-cached vs uncached sampling from one generator state; each path
-    # warmed once (the float64 copy is made on the first call), the second
-    # reading of each kept
-    g = torch.Generator(device=dev).manual_seed(7)
-    state = g.get_state()
-    samples, sample_ms = {}, {}
-    for use_cache in (True, False, True, False):
-      g.set_state(state)
-      torch.cuda.synchronize()
-      t0 = time.perf_counter()
-      samples[use_cache] = fbt.sample(g, WM_SAMPLE_N, use_cache=use_cache)
-      torch.cuda.synchronize()
-      sample_ms[use_cache] = (time.perf_counter() - t0) * 1e3
-    for k in samples[True]:
-      if not torch.equal(samples[True][k], samples[False][k]):
-        raise RuntimeError(f'cached and uncached samples differ in {k}')
-    frames = WM_SAMPLE_N * fbt.block_size
-    sample_dev = {c: profiled(lambda: fbt.sample(g, WM_SAMPLE_N,
-                                                 use_cache=c), 1)
-                  for c in (True, False)}
-    log(f'[wm] FBT.sample n={WM_SAMPLE_N} x {fbt.block_size}: cached '
-        f'{sample_ms[True]:.1f} ms ({frames * 1e3 / sample_ms[True]:.1f} '
-        f'frames/s), uncached {sample_ms[False]:.1f} ms '
-        f'({frames * 1e3 / sample_ms[False]:.1f} frames/s), warm, float64 '
-        f'serving (its copy made before), on {smi}; '
-        f'bit for bit equal; device (profiler) cached '
-        f'{_fmt(sample_dev[True][0])} in {sample_dev[True][1]:.0f} events, '
-        f'uncached {_fmt(sample_dev[False][0])} in '
-        f'{sample_dev[False][1]:.0f} events')
-
-    fbatch = ds.sample(gen, WM_CPU_FBT_EPISODES, fw, zdata)
-    errs = _card_vs_cpu(bvae, fbt, bbatch, fbatch)
+  fbatch = ds.sample(gen, WM_CPU_FBT_EPISODES, fw, zdata)
+  errs = _card_vs_cpu(bvae, fbt, bbatch, fbatch)
   return dict(out, losses=losses, params={'bvae': bvae.num_vars,
                                           'fbt': fbt.num_vars},
               train_wall_s={'bvae': bs, 'fbt': fs, 'fbt_trainer': f2s},
@@ -1669,7 +1704,240 @@ def world_model_phase(dev, smi):
                           uncached_ms=sample_ms[False],
                           frames_per_s=frames * 1e3 / sample_ms[True],
                           device=sample_dev),
-              card_vs_cpu=errs)
+              card_vs_cpu=errs), (bvae, fbt)
+
+# the JAX Evaler's logger.pkl entries (tests/test_evaler.py:48-53, and
+# proprio_log_mse: Urchin has proprio), per split
+EV_KEYS = ['u:action_log_mse', 'u:fvd', 'u:precision', 'u:recall', 'u:f1',
+           'p:ssim', 'p:psnr', 'p:proprio_log_mse', 'p:action_log_mse',
+           'p:true_action_log_mse', 'p:cosdist', 'p:fvd', 'p:precision',
+           'p:recall', 'p:f1']
+# the loss each model's training must lower; VQVAE's total holds a codebook
+# term that first climbs (x10-50 within 20-100 steps) as the encoder leaves
+# the near-zero codebook, in the JAX package as in the port (the two track
+# each other to 3 digits over 60 CPU steps), so its frame loss is read
+EV_LOSS_KEY = {'MultiStepArbiter': 'loss/recon_total',
+               'ArbiterAE': 'loss/recon_total', 'VAE': 'loss/vae_loss',
+               'VQVAE': 'loss/recon_lcd', 'ObjectLocalizer': 'loss'}
+
+
+def _ev_train(name, logdir, data, steps, extra, smi):
+  """One model through research.main --mode=train (the Trainer), its
+  logged losses finite and the last below the first, then ms a train step
+  at its batch (bs x window frames) and its parameter count."""
+  model, history, wall = _wm_train([
+      f'--model={name}', f'--logdir={logdir}', f'--datadir={data}',
+      f'--total_itr={steps}', f'--log_n={WM_LOG_N}', *WM_COMMON, *extra])
+  losses = _losses(history, name, EV_LOSS_KEY.get(name, 'loss/total'))
+  if not losses[-1] < losses[0]:
+    raise RuntimeError(f'{name}: the last logged loss is not below the '
+                       f'first: {losses}')
+  G = model.G
+  batch = to_device(next(RolloutDataset(Path(data) / 'train', window=G.window)
+                         .batches(G.bs)), model.device)
+  gen = torch.Generator(device=model.device).manual_seed(0)
+  step = _step_times(f'{name} update, float32 (bs {G.bs} x window '
+                     f'{G.window})', lambda: model.update(batch, gen),
+                     G.bs * G.window, smi)
+  log(f'[ev] {name}: {model.num_vars:,} params; {steps} steps through the '
+      f'Trainer in {wall:.1f} s (evaluates and saves included) on {smi}')
+  return model, dict(params=model.num_vars, losses=losses, train_s=wall,
+                     step=step)
+
+
+def _ev_outputs(name, model, batch):
+  """The frozen surfaces (features, action predictions, locations) and the
+  loss of one model on one batch; tensors on the CPU."""
+  with torch.no_grad():
+    loss, _ = model.loss_fn(batch)
+    if name == 'MultiStepArbiter':
+      out = dict(zip(('z', 'action'), model.forward_frozen(batch)))
+    else:
+      flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in batch.items()}
+      if name == 'ArbiterAE':
+        out = {'z': model.encode(flat)}
+        out['lcd_logits'] = model.decode(out['z'])['lcd'].logits
+      else:
+        out = dict(zip(('mean', 'std'), model.module(flat['lcd'],
+                                                     flat['proprio'])))
+        out['target'] = flat['full_state'][:, torch.as_tensor(model.idxs)]
+  return {k: v.float().cpu() for k, v in out.items()}, float(loss)
+
+
+def _nll_slack(got, want):
+  """The change of the localizer's loss, the mean over elements of
+  -log N(x; m, s), that its outputs' differences explain to first order:
+  |x - m| / s^2 a unit of mean, |1/s - (x - m)^2 / s^3| a unit of std. A
+  learned std of ~0.01-0.1 scales them by 1e2-1e4, so equal functions
+  with float32 outputs 1e-7 apart give losses ~1e-5 apart."""
+  m, s, x = want['mean'], want['std'], want['target']
+  dm, ds = (got['mean'] - m).abs(), (got['std'] - s).abs()
+  return float(((x - m).abs() / s ** 2 * dm
+                + (1 / s - (x - m) ** 2 / s ** 3).abs() * ds).mean())
+
+
+def _ev_card_vs_cpu(models, batches):
+  """Each model on the card against the same state dict on the CPU, float32
+  (TF32 off) on one fixed batch: outputs within WM_LOGIT_TOL, the loss
+  within WM_LOSS_RTOL relative (phase 12's gates); the localizer's loss
+  within that plus twice what its outputs' differences explain
+  (`_nll_slack`)."""
+  errs = {}
+  for name, (model, env_name) in models.items():
+    cpu = type(model)(_env(env_name, 'cpu'), AttrDict(model.G, device='cpu'))
+    cpu.module.load_state_dict(model.module.state_dict())
+    batch = batches[env_name]
+    got, loss = _ev_outputs(name, model, batch)
+    want, want_loss = _ev_outputs(name, cpu, {k: v.cpu()
+                                              for k, v in batch.items()})
+    errs[name] = {k: float((got[k] - want[k]).abs().max()) for k in want}
+    errs[name]['loss_rel'] = abs(loss - want_loss) / abs(want_loss)
+    errs[name]['loss_tol_rel'] = WM_LOSS_RTOL
+    if name == 'ObjectLocalizer':
+      errs[name]['std_range'] = (float(want['std'].min()),
+                                 float(want['std'].max()))
+      errs[name]['loss_tol_rel'] += 2 * _nll_slack(got, want) / abs(want_loss)
+  log(f'[ev] card vs CPU (float32 both, TF32 off, same state dict, '
+      f'{EV_CPU_BATCH} episodes): {errs}; bounds: outputs {WM_LOGIT_TOL} '
+      f'abs, losses loss_tol_rel ({WM_LOSS_RTOL}, the localizer\'s plus '
+      f'twice the NLL change its output differences explain)')
+  for name, e in errs.items():
+    if max(e[k] for k in ('z', 'action', 'lcd_logits', 'mean', 'std')
+           if k in e) > WM_LOGIT_TOL or e['loss_rel'] > e['loss_tol_rel']:
+      raise RuntimeError(f'{name}: card and CPU differ: {e}')
+  return errs
+
+
+def _ev_evaluate(label, model, data, arbiter, want):
+  """`evaluate` with a frozen arbiter and a writer: the metrics in `want`
+  finite, the lcd raster launched twice (the proprio re-render)."""
+  batch = next(RolloutDataset(data / 'test', window=model.G.window)
+               .batches(model.G.bs))
+  _zero_launches()
+  metrics = model.evaluate(RecordingWriter(), batch, 0, arbiter=arbiter)
+  torch.cuda.synchronize()
+  launches = _launches()
+  log(f'[ev] {label} evaluate, frozen {arbiter["kind"]}: {metrics}; '
+      f'launches {launches}')
+  if launches != _expect(lcd_raster=2):
+    raise RuntimeError(f'{label} evaluate launches {launches}')
+  missing = [k for k in want if not np.isfinite(metrics.get(k, np.nan))]
+  if missing:
+    raise RuntimeError(f'{label} evaluate: {missing} missing or not finite')
+  return dict(metrics=metrics, launches=launches)
+
+
+def _ev_localizer(tmp, smi):
+  """UrchinCube collection through research.main (native barrels, launches
+  counted), the ObjectLocalizer trained on it, its error on a test batch,
+  and its frozen file read back."""
+  data = tmp / 'cube_data'
+  _zero_launches()
+  t0 = time.perf_counter()
+  research_main.main([
+      '--mode=collect', f'--logdir={data}',
+      f'--train_barrels={EV_LOC_BARRELS["train"]}',
+      f'--test_barrels={EV_LOC_BARRELS["test"]}', f'--num_envs={BARREL_SIZE}',
+      '--barrel_format=native', *WM_COMMON, f'--env={EV_LOC_ENV}'])
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _launches()
+  n = sum(EV_LOC_BARRELS.values())
+  log(f'[ev] collect {EV_LOC_ENV} (research.main, native) {n} x '
+      f'{BARREL_SIZE} episodes: {wall:.2f} s on {smi}; launches {launches}')
+  if launches != _expect(mega_rollout=n, traj_raster=n, lcd_raster=n):
+    raise RuntimeError(f'collect launches {launches}: one dispatch a barrel')
+  loc, res = _ev_train('ObjectLocalizer', tmp / 'loc', data, EV_LOC_STEPS,
+                       ['--window=5', f'--env={EV_LOC_ENV}'], smi)
+  batch = to_device(next(RolloutDataset(data / 'test', window=5)
+                         .batches(loc.G.bs)), loc.device)
+  flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in batch.items()}
+  with torch.no_grad():
+    xy = loc.localize(flat['lcd'], flat['proprio'])
+  target = flat['full_state'][:, torch.as_tensor(loc.idxs)]
+  mae = (xy - target).abs().mean(0).tolist()
+  const = (target - target.mean(0)).abs().mean(0).tolist()
+  log(f'[ev] localizer on {xy.shape[0]} test frames ({loc.keys}): mean abs '
+      f'error {mae} (a constant at the batch mean: {const}) on {smi}')
+  if not np.isfinite(mae).all():
+    raise RuntimeError(f'localizer error {mae}')
+  path = loc.save_frozen(tmp / 'loc')
+  with open(path, 'rb') as f:
+    blob = pickle.load(f)
+  back = ObjectLocalizer(loc.env, AttrDict(blob['G']))
+  back.module.load_state_dict(blob['state_dict'])
+  with torch.no_grad():
+    if not torch.equal(back.localize(flat['lcd'], flat['proprio']), xy):
+      raise RuntimeError('the frozen localizer reads back differently')
+  return loc, data, dict(res, collect=dict(wall_s=wall, launches=launches),
+                         mae=mae, const_mae=const)
+
+
+def evaluation_phase(dev, smi, tmp, bvae, fbt):
+  """The evaluation chain on the card through research.main: the two
+  arbiters, the other autoencoders and the object localizer trained; both
+  evaluates with a frozen arbiter; --mode=eval over phase 12's FBT; and the
+  new models on the card against the CPU."""
+  data = tmp / 'data'
+  adir, aedir = tmp / 'msarb', tmp / 'arbae'
+  out = {}
+  msarb, out['MultiStepArbiter'] = _ev_train(
+      'MultiStepArbiter', adir, data, EV_ARB_STEPS, EV_ARBITER, smi)
+  arbae, out['ArbiterAE'] = _ev_train(
+      'ArbiterAE', aedir, data, EV_ARB_STEPS, EV_ARBITER_AE, smi)
+  for name, extra in EV_AES.items():
+    _, out[name] = _ev_train(name, tmp / name, data, EV_AE_STEPS, extra, smi)
+  loc, cube_data, out['ObjectLocalizer'] = _ev_localizer(tmp, smi)
+
+  ae_arb = load_arbiter(AttrDict(arbiterdir=aedir), bvae.env)
+  ms_arb = load_arbiter(AttrDict(arbiterdir=adir), fbt.env)
+  if (ae_arb['kind'], ms_arb['kind'], ms_arb['window']) != (
+      'ArbiterAE', 'MultiStepArbiter', 47):
+    raise RuntimeError(f'arbiters {ae_arb["kind"]} {ms_arb["kind"]}')
+  out['evaluate'] = {
+      'bvae': _ev_evaluate('BVAE', bvae, data, ae_arb,
+                           ['eval/fid', 'eval/cosdist']),
+      'fbt': _ev_evaluate('FBT', fbt, data, ms_arb, [
+          'eval/unprompted_fvd', 'eval/unprompted_precision',
+          'eval/unprompted_recall', 'eval/unprompted_f1',
+          'eval/unprompted_action_log_mse', 'eval/prompted_cosdist',
+          'eval/prompted_action_log_mse',
+          'eval/prompted_true_action_log_mse'])}
+
+  # --mode=eval: the Evaler over phase 12's FBT with the MultiStepArbiter
+  G, env = research_main.parse_flags([
+      '--mode=eval', '--model=FBT', f'--weightdir={tmp / "fbt"}',
+      f'--arbiterdir={adir}', f'--logdir={tmp / "eval"}', f'--datadir={data}',
+      f'--eval_n={EV_EVAL_N}', *WM_COMMON, *EV_FBT])
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  evaler, final = research_main.evaluate(G, env)
+  wall = time.perf_counter() - t0
+  with open(tmp / 'eval' / 'logger.pkl', 'rb') as f:
+    table = pickle.load(f)
+  want = {f'{split}:{k}' for split in ('test', 'train') for k in EV_KEYS}
+  bad = [k for k, v in table.items() if not np.isfinite(v).all()]
+  if set(table) != want or table != final or bad:
+    raise RuntimeError(f'logger.pkl: {sorted(set(table) ^ want)} differ, '
+                       f'{bad} not finite')
+  per_rep = -(-EV_EVAL_N // G.bs) * G.bs * 2 * 2   # batches x (u, p) x splits
+  log(f'[ev] Evaler, FBT x MultiStepArbiter, {EV_REPS} reps of eval_n '
+      f'{EV_EVAL_N} (bs {G.bs}, 50 frames a sample): {wall:.1f} s; '
+      f'{evaler.rep_s} s a rep, {per_rep / np.mean(evaler.rep_s):.1f} '
+      f'samples/s on {smi}')
+  log(f'[ev] logger.pkl: { {k: table[k] for k in sorted(table)} }')
+  out['evaler'] = dict(wall_s=wall, rep_s=evaler.rep_s,
+                       samples_per_rep=per_rep, table=table)
+
+  batches = {MAIN_ENV: to_device(next(RolloutDataset(
+      data / 'test', window=47).batches(EV_CPU_BATCH)), dev)}
+  batches[EV_LOC_ENV] = to_device(next(RolloutDataset(
+      cube_data / 'test', window=5).batches(EV_CPU_BATCH)), dev)
+  models = {'MultiStepArbiter': (msarb, MAIN_ENV),
+            'ArbiterAE': (arbae, MAIN_ENV),
+            'ObjectLocalizer': (loc, EV_LOC_ENV)}
+  out['card_vs_cpu'] = _ev_card_vs_cpu(models, batches)
+  return out
 
 
 def main():
@@ -1701,7 +1969,10 @@ def main():
   step_run = run('per-step', per_step_phase, dev, smi)
   sol_path = run('solver-path', solver_path_phase, dev, smi)
   vec = run('vec-env', vec_env_phase, dev, smi)
-  wm = run('world-model', world_model_phase, dev, smi)
+  with tempfile.TemporaryDirectory() as tmp:
+    wm, (bvae, fbt) = run('world-model', world_model_phase, dev, smi,
+                          Path(tmp))
+    ev = run('evaluation', evaluation_phase, dev, smi, Path(tmp), bvae, fbt)
   lt, tt, mt = kern['times'][TRIPWIRE_FRAMES], traj['times'], meg['times']
   launches = main_run['launches']
   sk = sol_path['kernels']
@@ -1744,7 +2015,8 @@ def main():
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_s=build, ptxas=ptxas, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
         reference=ref, solver=sol, main=main_run, per_step=step_run,
-        solver_path=sol_path, vec_env=vec, world_model=wm, kernels=kernels,
+        solver_path=sol_path, vec_env=vec, world_model=wm, evaluation=ev,
+        kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)
