@@ -1,5 +1,5 @@
-"""Model registry (the port of research/nets/__init__.py): the ported
-autoencoders + video models."""
+"""Model registry (the port of research/nets/__init__.py): the seven
+autoencoders + the four video models."""
 from boxlcd_tpu_torch.research.nets.autoencoders import ae_map
 from boxlcd_tpu_torch.research.nets.video_models import video_map
 

@@ -153,6 +153,38 @@ class CausalSelfAttention(nn.Module):
     return y if cache is None else (y, cache)
 
 
+class GRUCell(nn.Module):
+  """flax nn.GRUCell (JAX: video_models/rssm.py:39) as one torch.gru_cell:
+  r = sigmoid(ir(x) + hr(h)), z = sigmoid(iz(x) + hz(h)),
+  n = tanh(in(x) + r * hn(h)), h' = (1 - z) n + z h, which is
+  torch.nn.GRUCell's formula. flax's recurrent kernels hr and hz carry no
+  bias, so the parameters are flax's: `weight_ih` the input kernels
+  [ir; iz; in] (3F, in), `weight_hh` [hr; hz; hn] (3F, F), `bias_ih`
+  their biases, and `bias_hn` hn's alone; the cell's recurrent bias is
+  [0; 0; bias_hn]. `convert.py` stacks a flax cell's six kernels so. Init
+  as flax's: lecun-normal input kernels, orthogonal recurrent ones per
+  gate, zero biases."""
+
+  def __init__(self, in_n, features):
+    super().__init__()
+    F_ = features
+    self.weight_ih = nn.Parameter(torch.empty(3 * F_, in_n))
+    self.weight_hh = nn.Parameter(torch.empty(3 * F_, F_))
+    self.bias_ih = nn.Parameter(torch.zeros(3 * F_))
+    self.bias_hn = nn.Parameter(torch.zeros(F_))
+    for g in range(3):
+      lecun_normal_(self.weight_ih[g * F_:(g + 1) * F_], in_n)
+      with torch.no_grad():
+        nn.init.orthogonal_(self.weight_hh[g * F_:(g + 1) * F_])
+
+  def forward(self, h, x):
+    """(carry h (B, F), input x (B, in)) -> the new carry (B, F)."""
+    b_hh = torch.cat([self.bias_hn.new_zeros(2 * self.bias_hn.shape[0]),
+                      self.bias_hn])
+    return torch.gru_cell(x, h, self.weight_ih, self.weight_hh,
+                          self.bias_ih, b_hh)
+
+
 class TransformerBlock(nn.Module):
   """Pre-LN transformer block (reference: common.py:59-74)."""
 

@@ -11,7 +11,11 @@ submodules carry the flax names, so the mapping is by name:
     kh, kw), flipped in both spatial axes (`common.ConvTranspose`); the
     rule is keyed on the module's flax name, `ConvTranspose_<i>`
   - LayerNorm/GroupNorm `scale`   -> `weight`
-  - `bias`, `embedding`, `pos_emb` as they are.
+  - `bias`, `embedding`, `pos_emb` as they are;
+  - a GRUCell, the subtree of Dense kernels `ir iz in hr hz hn`, ->
+    `common.GRUCell`'s `weight_ih` [ir; iz; in] and `weight_hh` [hr; hz;
+    hn], each kernel transposed, `bias_ih` [b_ir; b_iz; b_in] and
+    `bias_hn` (the order of the gates is torch.gru_cell's: r, z, n).
 Only this direction is provided. Loading a JAX checkpoint (`.pkl`) or a
 JAX frozen arbiter (`*.frozen.pkl`, flax msgpack bytes) would need flax's
 msgpack serialization and is not supported: the port's frozen arbiters
@@ -38,6 +42,19 @@ def _leaf(module, name, value):
   return name, value
 
 
+GRU_GATES = ('ir', 'iz', 'in', 'hr', 'hz', 'hn')
+
+
+def _gru(tree):
+  """A flax GRUCell's six Dense kernels -> common.GRUCell's parameters."""
+  k = {g: np.asarray(tree[g]['kernel']).T for g in GRU_GATES}
+  return {'weight_ih': np.concatenate([k['ir'], k['iz'], k['in']]),
+          'weight_hh': np.concatenate([k['hr'], k['hz'], k['hn']]),
+          'bias_ih': np.concatenate([np.asarray(tree[g]['bias'])
+                                     for g in ('ir', 'iz', 'in')]),
+          'bias_hn': np.asarray(tree['hn']['bias'])}
+
+
 def flax_to_state_dict(params):
   """flax params (optionally under a top-level 'params') -> state_dict."""
   if set(params) == {'params'}:
@@ -45,6 +62,10 @@ def flax_to_state_dict(params):
   out = {}
 
   def walk(tree, prefix, module):
+    if set(tree) == set(GRU_GATES):
+      for key, arr in _gru(tree).items():
+        out[prefix + key] = torch.as_tensor(np.array(arr, order='C'))
+      return
     for name, value in tree.items():
       if isinstance(value, dict):
         walk(value, f'{prefix}{name}.', name)

@@ -1,5 +1,8 @@
 """Video-model registry (the port of research/nets/video_models/__init__.py):
-the ported video models only."""
+all four of the JAX package's video models, in its order."""
 from boxlcd_tpu_torch.research.nets.video_models.fbt import FBT
+from boxlcd_tpu_torch.research.nets.video_models.fit import FIT
+from boxlcd_tpu_torch.research.nets.video_models.frnld import FRNLD
+from boxlcd_tpu_torch.research.nets.video_models.rssm import RSSM
 
-video_map = {'FBT': FBT}
+video_map = {cls.__name__: cls for cls in (FBT, FIT, FRNLD, RSSM)}

@@ -44,7 +44,14 @@ class FBTModule(nn.Module):
       setattr(self, f'block{i}',
               TransformerBlock(n_embed, n_head, block_size))
     self.ln_f = LayerNorm(n_embed)
+    self.make_head(n_embed, z_size)
+
+  def make_head(self, n_embed, z_size):
     self.dist_head = BinaryHead(n_embed, z_size)
+
+  def head(self, x):
+    """The final features -> token logits."""
+    return self.dist_head(x).logits
 
   def blocks(self):
     return [getattr(self, f'block{i}') for i in range(self.n_layer)]
@@ -64,7 +71,7 @@ class FBTModule(nn.Module):
     x = x + self.pos_emb[:, :T]
     for block in self.blocks():
       x = block(x)
-    return self.dist_head(self.ln_f(x)).logits
+    return self.head(self.ln_f(x))
 
   def empty_cache(self, B):
     """Per layer a preallocated (k, v) pair, each (B, H, S, hs), in the
@@ -83,7 +90,7 @@ class FBTModule(nn.Module):
     x = x + self.pos_emb[:, i:i + 1]
     for block, cache in zip(self.blocks(), caches):
       x, _ = block(x, cache=cache, index=i)
-    return self.dist_head(self.ln_f(x)).logits[:, 0], caches
+    return self.head(self.ln_f(x))[:, 0], caches
 
 
 class FBT(VideoModel):
@@ -166,12 +173,13 @@ class FBT(VideoModel):
     return z
 
   @torch.no_grad()
-  def onestep(self, batch, i, gen, temp=1.0):
+  def onestep(self, batch, i, gen, temp=1.0, u=None):
     """Learned-env serving: predict frame i from the window
-    (reference: flat_btoken.py:77-85)."""
+    (reference: flat_btoken.py:77-85). The token draws read uniforms u
+    (B, z_size), drawn from `gen` unless given."""
     z = self.bvae.encode(batch, noise=False)
     logits = self.module(z, batch['action'])
-    zi = dists.Bernoulli(logits[:, i] / temp).sample(gen)
+    zi = dists.Bernoulli(logits[:, i] / temp).sample(gen, u=u)
     dec = self.bvae.decode(self.bvae.unflatten_z(zi))
     batch = dict(batch)
     batch['lcd'] = batch['lcd'].clone()

@@ -23,13 +23,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      and from random poses across the frame's edges, up to T x B = 64 x 4096
      = 262144 frames, and at the main path's shape (100 x 4000), where it is
      then timed, with its launch geometry;
-  5. megakernel vs plain: tests/test_mega.py's six envs at B = 1024, T = 34
-     (4 random-action steps, then 30 zero-action steps) at per-field median
-     0 and within that file's tail bounds, poses at t = 0 and 2 within 1e-4,
-     the sleep share within 0.02; then the same (median within bounds) at
-     the main path's shape (Urchin, 4000 worlds x 100 random-action steps),
-     where it is timed, beside its launch geometry, occupancy and its times
-     at each block size launch_geometry picks from;
+  5. megakernel vs plain: tests/test_mega.py's six envs at B = 1024, T = 24
+     (4 random-action steps, then 20 zero-action steps; that file's 34 cut
+     in depth) at per-field median 0 and within that file's tail bounds,
+     poses at t = 0 and 2 within 1e-4, the sleep share within 0.02; then
+     the same (median within bounds) over the first 25 steps of the main
+     path's shape (Urchin, 4000 worlds x 100 random-action steps), where
+     the kernel is timed at 25 and 100 steps, beside its launch geometry,
+     occupancy and its times at each block size launch_geometry picks from;
   6. reference: the per-step core on the card against the CPU, and the
      megakernel path against the per-step path on the card from one seed
      (equal actions, t = 0 frames equal bit for bit);
@@ -38,7 +39,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      and Urchin at solver_exit_tol = 1e-4, at B = 1024 from
      tests/test_pallas.py's warm states, equal bit for bit, and the same
      states with every 2-point contact's second point dropped (equal too);
-     then T = 34 rollouts with the substep kernel against phase 5's plain
+     then T = 24 rollouts with the substep kernel against phase 5's plain
      rollouts, within tests/test_mega.py's bounds;
   8. main path: `fill_barrels` for Urchin (vel_iters 8, pos_iters 4, 4000
      worlds = 4 barrels in one dispatch, 100 steps, 16x32 LCD) through the
@@ -90,7 +91,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      lcd raster launches; --mode=eval over the FBT (5 reps, eval_n 512),
      its logger.pkl holding the JAX Evaler's keys, all finite, with its
      seconds a rep and samples/s; the arbiters' and the localizer's
-     outputs and losses on the card against the CPU (phase 12's gates).
+     outputs and losses on the card against the CPU (phase 12's gates);
+  14. video models and the learned env, on phase 12's data, BVAE and FBT
+     and phase 13's RNLDA, MultiStepArbiter and ObjectLocalizer: FIT
+     (kicker.py:26), RSSM (:24) and FRNLD (:30, over the RNLDA), window 50,
+     prompt 3, trained 100 steps each through research.main's Trainer
+     (logged losses finite, the last below the first; parameters, ms a
+     step, frames/s, peak memory, device ms and events); each one's
+     evaluate with the MultiStepArbiter (finite, 2 lcd raster launches);
+     --mode=eval over each (5 reps of eval_n 128, logger.pkl the JAX key
+     set, finite; seconds a rep, samples/s); the three on the card
+     against the CPU (phase 12's gates, FRNLD's latents equal beyond 1e-4
+     of a bin edge). Then the learned env: RewardLenv(LearnedEnv(128,
+     FBT)), Urchin body goals, autoreset, ep_len 100, 101 random steps
+     (one timeout, done on it; observations, rewards and deltas finite;
+     lcd raster launches 2 a full reset + 1 a goal resample), env-steps/s,
+     ms a step and the busy share of 10 profiled steps; one model step
+     on the card against the CPU (codes, draws and frames equal beyond
+     1e-4, probabilities and proprio within 2e-4); the FRNLD learned env
+     and cube goals (UrchinCube, the frozen ObjectLocalizer over an
+     untrained BVAE + FBT) 20 steps each; PreprocVecEnv over the FBT one,
+     its zstate the BVAE's code.
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -131,8 +152,10 @@ from boxlcd_tpu_torch.research.nets.autoencoders import (
     ArbiterAE, MultiStepArbiter, ObjectLocalizer)
 from boxlcd_tpu_torch.research.nets.autoencoders.bvae import BVAE
 from boxlcd_tpu_torch.research.runners.trainer import load_arbiter
+from boxlcd_tpu_torch.research.nets.video_models._base import uniform_actions
 from boxlcd_tpu_torch.research.nets.video_models.fbt import FBT
-from boxlcd_tpu_torch.research.wrappers import VecEnv
+from boxlcd_tpu_torch.research.wrappers import (
+    CubeGoalEnv, LearnedEnv, PreprocVecEnv, RewardLenv, VecEnv)
 from boxlcd_tpu_torch.utils import AttrDict, set_tf32
 
 ITERS = {'vel_iters': 8, 'pos_iters': 4}     # bench.py's headline setting
@@ -144,7 +167,12 @@ TRIPWIRE_FRAMES = 16                        # the main path's lcd raster call
 VEC_BATCH = 8                               # the VecEnv's lcd raster call
 TRAJ_SHAPES = [(2, 1000), (64, 4096)]       # (T, B), up to 262144 frames
 PER_STEP_BATCH, PER_STEP_T = 1000, 10       # the per-step path, cut in depth
-MEGA_CHECK_B, MEGA_CHECK_T = 1024, 34       # tests/test_mega.py's shape
+# tests/test_mega.py's shape is 1024 x 34 (4 random-action steps, then 30
+# zero-action steps); cut to 4 + 20: of the four envs whose plain sleep
+# share must pass 0.2, UrchinBall reads 0.30 and Urchin 0.39 at 24 steps on
+# the CPU, Luxo and LuxoCube 0.42 and 0.53 already at 22 (0.49-0.73 at 34)
+MEGA_CHECK_B, MEGA_CHECK_T = 1024, 24
+MEGA_PLAIN_T = 25             # the main shape's plain steps, of its 100
 # tests/test_mega.py's FIELDS and BOUNDS: (median, tail threshold, tail
 # fraction, least sleep share of the plain version)
 MEGA_FIELDS = ['c', 'a', 'v', 'w', 'sleep_time', 'wc_imp', 'j_imp', 'j_mot',
@@ -683,11 +711,12 @@ def _mega_check(label, B, bounds, new, traj, ref, ref_traj, worst,
 def mega_phase(dev):
   """The megakernel against its plain version on tests/test_mega.py's six
   envs and bounds, then at the main path's shape (Urchin, 4000 worlds x 100
-  steps of fresh random actions): the plain call timed there is held to the
-  same bounds. The least sleep share is not asked of it: it shows that the
-  30 zero-action steps let worlds fall asleep, and the main path has none.
-  Returns the measurements and, per env, the T = 34 inputs and plain
-  rollout, which the solver phase holds its kernel rollouts to."""
+  steps of fresh random actions): the plain call over its first
+  MEGA_PLAIN_T steps is timed and held to the same bounds. The least sleep
+  share is not asked of it: it shows that the zero-action steps let worlds
+  fall asleep, and the main path has none. Returns the measurements and,
+  per env, the MEGA_CHECK_T inputs and plain rollout, which the solver
+  phase holds its kernel rollouts to."""
   failures, worst, refs = [], {}, {}
   for name, (*bounds, sleep_min) in MEGA_BOUNDS.items():
     env = _env(name, dev)
@@ -706,39 +735,49 @@ def mega_phase(dev):
                 worst, failures, sleep_min, exact_median=True)
     refs[name] = (st, ms, ref, ref_traj)
 
-  # the main path's shape: Urchin, 4000 worlds, 100 steps
+  # the main path's shape: Urchin, 4000 worlds x 100 steps, the kernel
+  # timed there; the plain version, ~43,000 launches a step at any width,
+  # is held and timed over the first MEGA_PLAIN_T steps, as the kernel and
+  # the bound are for the kernels line
   env = _env(MAIN_ENV, dev)
-  T = int(env.G.ep_len)
+  T, Tp = int(env.G.ep_len), MEGA_PLAIN_T
   gen = torch.Generator(device=dev).manual_seed(3)
   st = Env.reset(env, gen, MAIN_BATCH)
   acts = torch.rand((MAIN_BATCH, T, env.act_size), generator=gen,
                     device=dev) * 2 - 1
   ms = _motor_speeds(env, acts)
   rollout = mega.make_rollout(env.spec, T)
-  final, traj = rollout.kernel_rollout(st, ms)
+  short, ms_short = mega.make_rollout(env.spec, Tp), ms[:Tp].contiguous()
+  final, traj = short.kernel_rollout(st, ms_short)
   # the plain version is ~10^6 small launches: one call, timed on the host
   # clock (a profiler trace of it would not fit the run), and kept
   torch.cuda.synchronize()
   t0 = time.perf_counter()
-  ref, ref_traj = rollout.plain_rollout(st, ms)
+  ref, ref_traj = short.plain_rollout(st, ms_short)
   torch.cuda.synchronize()
   plain_wall = (time.perf_counter() - t0) * 1e3
-  _mega_check(f'{MAIN_ENV} B={MAIN_BATCH} T={T}', MAIN_BATCH,
+  _mega_check(f'{MAIN_ENV} B={MAIN_BATCH} T={Tp}', MAIN_BATCH,
               MEGA_BOUNDS[MAIN_ENV][:3], final, traj, ref, ref_traj, worst,
               failures)
   stream_err = float((traj['stream'] - ref_traj['stream']).abs().max())
-  log(f'[mega] {MAIN_ENV} B={MAIN_BATCH} T={T}: pose stream max err over '
+  log(f'[mega] {MAIN_ENV} B={MAIN_BATCH} T={Tp}: pose stream max err over '
       f'all steps {stream_err:.2e}')
   if failures:
     raise RuntimeError('megakernel outside the test_mega bounds:\n'
                        + '\n'.join(failures))
-  bound, by, flops = mega_bound(env.spec, final, MAIN_BATCH, T)
-  t = dict(ms=events_ms(lambda: rollout.kernel_rollout(st, ms), 3),
+  bound, by, flops = mega_bound(env.spec, final, MAIN_BATCH, Tp)
+  full_final, _ = rollout.kernel_rollout(st, ms)
+  bound_main, _, flops_main = mega_bound(env.spec, full_final, MAIN_BATCH, T)
+  t = dict(ms=events_ms(lambda: short.kernel_rollout(st, ms_short), 3),
            plain_wall_ms=plain_wall, plain_ms=plain_wall, bound_ms=bound,
-           bound_by=by, flops=flops, stream_err=stream_err)
-  log(f'[mega] {MAIN_ENV} B={MAIN_BATCH} T={T}: kernel {t["ms"]:.3f} ms '
+           bound_by=by, flops=flops, stream_err=stream_err, steps=Tp,
+           main_ms=events_ms(lambda: rollout.kernel_rollout(st, ms), 3),
+           main_steps=T, main_bound_ms=bound_main, main_flops=flops_main)
+  log(f'[mega] {MAIN_ENV} B={MAIN_BATCH} T={Tp}: kernel {t["ms"]:.3f} ms '
       f'device (events); plain {plain_wall:.1f} ms a call (host clock); '
-      f'bound {bound:.6f} ms ({by}, {flops:.3e} flops)')
+      f'bound {bound:.6f} ms ({by}, {flops:.3e} flops); at the main path\'s '
+      f'T={T}: kernel {t["main_ms"]:.3f} ms device (events), bound '
+      f'{bound_main:.6f} ms ({flops_main:.3e} flops)')
   geometry = block_sizes(
       'mega', MAIN_BATCH,
       lambda B, th: mega.launch_geometry(env.spec, B, th), rollout.occupancy,
@@ -1080,7 +1119,7 @@ def solver_phase(dev, mega_refs):
   on v, w, c, a; substep hook on its ten fields), and the substep kernel
   against the plain solves on the same states with every 2-point contact's
   second velocity point dropped (equal too); then a
-  T = 34 rollout (4 random-action steps, 30 zero-action steps) with
+  T = MEGA_CHECK_T rollout (4 random-action steps, then zero actions) with
   the substep kernel against the mega phase's plain rollout of the same
   states and motor speeds, within test_mega's bounds."""
   failures, worst = [], {'velocity': 0.0, 'substep': 0.0}
@@ -1940,6 +1979,352 @@ def evaluation_phase(dev, smi, tmp, bvae, fbt):
   return out
 
 
+# phase 14, video models and the learned env: on phase 12's Urchin data,
+# BVAE and FBT and phase 13's RNLDA, MultiStepArbiter and ObjectLocalizer
+VM_FLAGS = {   # research/scripts/kicker.py's presets
+    'FIT': ['--n_layer=2', '--n_head=4', '--n_embed=256',
+            '--hidden_size=256'],                              # kicker.py:26
+    'RSSM': ['--nfilter=64', '--hidden_size=300', '--free_nats=0.01'],  # :24
+    'FRNLD': ['--n_layer=4', '--n_head=8', '--n_embed=512',
+              '--hidden_size=512'],                            # kicker.py:30
+}
+VM_COMMON = ['--window=50', '--prompt_n=3']   # kicker.py:35, :37, as FBT's
+VM_STEPS = 100                  # kicker.py runs 1e5
+VM_EVAL_N = 128                 # G.eval_n 2048, cut; --mode=eval's 5 reps
+VM_CPU_BATCH = 16               # the card-vs-CPU batch, episodes x 50
+LENV_ENVS = 128                 # research/scripts/headline_rl.sh --num_envs
+LENV_STEPS = 101                # ep_len 100 + 1: one timeout's full reset
+LENV_OTHER_STEPS = 20           # the FRNLD and cube-goal learned envs
+LENV_PREPROC_STEPS = 5
+LENV_PROFILED = 10              # steps timed and profiled
+# a card-vs-CPU learned-env step: the z draws equal wherever |p - u| is
+# above this margin, the decoded frames wherever |prob - 0.5| is
+LENV_MARGIN = 1e-4
+
+
+def _vm_cpu_twin(name, model, cpu_env):
+  """The same model on the CPU with the card's state dict (FRNLD with its
+  RNLDA's)."""
+  G = AttrDict(model.G, device='cpu')
+  if name == 'FRNLD':
+    ron = type(model.ronald)(cpu_env, AttrDict(model.ronald.G, device='cpu'))
+    ron.module.load_state_dict(model.ronald.module.state_dict())
+    cpu = type(model)(cpu_env, G, ronald=ron)
+  else:
+    cpu = type(model)(cpu_env, G)
+  cpu.module.load_state_dict(model.module.state_dict())
+  return cpu
+
+
+def _vm_outputs(name, model, batch, eps, z=None):
+  """One video model's outputs and loss on one batch (CPU tensors, a
+  float): FIT's logits; RSSM's embedding, posterior and prior means and
+  frame logits, fed the normals eps; FRNLD's RNLDA encoder logits, its
+  latents, and its transformer's outputs and loss (FRNLD.loss_fn's
+  formula) on the latents z, the CPU's, since a latent within a float32
+  rounding of a bin edge may quantize apart on the two devices."""
+  dev = model.device
+  with torch.no_grad():
+    if name == 'FIT':
+      loss, _ = model.loss_fn(batch)
+      B, T = batch['lcd'].shape[:2]
+      out = {'logits': model.module(batch['lcd'].reshape(B, T, -1),
+                                    batch['action'])}
+    elif name == 'RSSM':
+      eps = tuple(e.to(dev) for e in eps)
+      loss, _ = model.loss_fn(batch, eps=eps)
+      emb = model._embed(batch['lcd'], batch['proprio'])
+      posts, priors = model.observe(emb[:, 1:], batch['action'][:, :-1],
+                                    eps=eps)
+      feat = torch.cat([posts['stoch'], posts['deter']], -1)
+      out = {'embed': emb, 'post_mean': posts['mean'],
+             'prior_mean': priors['mean'],
+             'lcd_logits': model.module.decode(
+                 feat.reshape(-1, feat.shape[-1]))['lcd'].logits}
+    else:
+      flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in batch.items()}
+      ron = model.ronald
+      out = {'z_logits': ron.module.enc(flat['lcd'], flat['proprio']),
+             'z': ron.encode(batch, noise=False)}
+      zz = out['z'] if z is None else z.to(dev)
+      out['out'] = model.module(zz, batch['action'])
+      loss = ((torch.tanh(out['out']) - zz) ** 2).mean()
+  return {k: v.float().cpu() for k, v in out.items()}, float(loss)
+
+
+def _vm_card_vs_cpu(models, batch):
+  """Each new video model on the card against the same state dict on the
+  CPU, float32 (TF32 off) on one batch: outputs within WM_LOGIT_TOL, the
+  loss within WM_LOSS_RTOL relative (phase 12's gates). FRNLD's latents
+  are equal wherever tanh of the encoder's logit is more than LENV_MARGIN
+  from a bin edge (-0.5, 0, 0.5)."""
+  cpu_env = _env(MAIN_ENV, 'cpu')
+  cpu_batch = {k: v.cpu() for k, v in batch.items()}
+  B, T = batch['action'].shape[:2]
+  g = torch.Generator().manual_seed(0)
+  eps = (torch.randn((T - 1, B, 64), generator=g),
+         torch.randn((T - 1, B, 64), generator=g))
+  errs = {}
+  for name, model in models.items():
+    cpu = _vm_cpu_twin(name, model, cpu_env)
+    want, want_loss = _vm_outputs(name, cpu, cpu_batch, eps)
+    got, loss = _vm_outputs(name, model, batch, eps, z=want.get('z'))
+    e = {k: float((got[k] - want[k]).abs().max()) for k in want if k != 'z'}
+    if name == 'FRNLD':
+      edge = torch.stack([(torch.tanh(want['z_logits']) - b).abs()
+                          for b in (-0.5, 0.0, 0.5)]).amin(0)
+      edge = edge.reshape(want['z'].shape)
+      # a latent is a bin centre up to a rounding of its straight-through
+      # z_q + (z - z); apart means another centre, 0.5 away
+      apart = (got['z'] - want['z']).abs() > 0.25
+      e['z_apart'] = int(apart.sum())
+      e['z_apart_beyond_margin'] = int((apart & (edge > LENV_MARGIN)).sum())
+    e['loss_rel'] = abs(loss - want_loss) / abs(want_loss)
+    errs[name] = e
+  log(f'[vm] card vs CPU (float32 both, TF32 off, same state dict, {B} '
+      f'episodes x {T}): {errs}; bounds: outputs {WM_LOGIT_TOL} abs, losses '
+      f'{WM_LOSS_RTOL} rel, FRNLD latents equal beyond {LENV_MARGIN} of a '
+      f'bin edge')
+  for name, e in errs.items():
+    outs = [v for k, v in e.items() if k not in ('loss_rel', 'z_apart',
+                                                 'z_apart_beyond_margin')]
+    if max(outs) > WM_LOGIT_TOL or e['loss_rel'] > WM_LOSS_RTOL or \
+        e.get('z_apart_beyond_margin', 0):
+      raise RuntimeError(f'{name}: card and CPU differ: {e}')
+  return errs
+
+
+def _lenv_G(model, **kw):
+  """The learned env's config: the model's, with the RL entry point's
+  autoreset (research/rl/main.py sets it for goal envs); the other RL keys
+  at their defaults."""
+  return AttrDict(model.G, autoreset=1, **kw)
+
+
+def _lenv_run(label, renv, steps, smi, timed=False):
+  """A RewardLenv reset and stepped `steps` times with uniform random
+  actions, the lcd raster's launches counted over it: 2 a full reset (the
+  goals' real reset, the prompts') and 1 a per-row goal resample. Its
+  observations, rewards and deltas finite, done on timeout. With `timed`,
+  env-steps/s, ms a step and the busy share of LENV_PROFILED more steps."""
+  env = renv.lenv
+  dev, B = env.device, env.num_envs
+  gen = torch.Generator(device=dev).manual_seed(5)
+  act = lambda: uniform_actions(gen, (B, env.raw_env.act_size), dev)
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  finite = lambda d: torch.stack([torch.isfinite(v).all()
+                                  for v in d.values()]).all()
+  _zero_launches()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  obs = renv.reset()
+  ok &= finite(obs)
+  full, resample, timeouts = 1, 0, []
+  for t in range(steps):
+    obs, rew, done, info = renv.step(act())
+    ok &= finite(obs) & finite({'rew': rew, 'delta': info['delta']})
+    if bool(info['timeout'].all()):
+      full += 1
+      timeouts.append(t + 1)
+      ok &= done.all()
+    elif bool(info['success'].any()):
+      resample += 1
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _launches()
+  want = _expect(lcd_raster=2 * full + resample)
+  ep_len = int(env.G.ep_len)
+  log(f'[lenv] {label}: {B} envs x {steps} steps in {wall:.2f} s, '
+      f'{B * steps / wall:.1f} env-steps/s, {wall * 1e3 / steps:.2f} ms a '
+      f'step (resets included) on {smi}; timeouts at steps {timeouts}, '
+      f'{full} full resets, {resample} goal resamples; launches {launches}')
+  if not bool(ok):
+    raise RuntimeError(f'{label}: observations, rewards or deltas not '
+                       f'finite, or not done on timeout')
+  if timeouts != list(range(ep_len, steps + 1, ep_len)):
+    raise RuntimeError(f'{label}: timeouts at {timeouts}, ep_len {ep_len}')
+  if launches != want:
+    raise RuntimeError(f'{label}: launches {launches}, not {want}')
+  out = dict(wall_s=wall, steps=steps, envs=B,
+             env_steps_per_s=B * steps / wall, ms_a_step=wall * 1e3 / steps,
+             full_resets=full, goal_resamples=resample, launches=launches)
+  if timed:
+    step = lambda: renv.step(act())
+    ms = wall_ms(step, LENV_PROFILED)
+    dev_ms, events = profiled(step, LENV_PROFILED)
+    busy = None if dev_ms is None else dev_ms / ms
+    log(f'[lenv] {label}, {LENV_PROFILED} more steps: {ms:.3f} ms a step '
+        f'(host clock, synchronised), {B * 1e3 / ms:.1f} env-steps/s; '
+        f'device {_fmt(dev_ms)} a step in {events:.0f} events (profiler), '
+        f'busy {busy} on {smi}')
+    out.update(step_ms=ms, step_env_steps_per_s=B * 1e3 / ms,
+               device_ms=dev_ms, events=events, busy=busy)
+  return out
+
+
+def _lenv_card_vs_cpu(renv):
+  """One learned-env model step (FBT.onestep at the env's pointer) from the
+  env's window batch and one set of uniforms u, on the card and on the CPU
+  with the same state dicts, taken apart where float32 roundings may
+  legitimately move a threshold: the window's BVAE codes equal wherever
+  the code's probability is more than LENV_MARGIN from 0.5; from the same
+  codes (the CPU's) the token probabilities p within WM_LOGIT_TOL and the
+  z draws equal wherever |p - u| > LENV_MARGIN; from the same draws the
+  frames equal wherever |prob - 0.5| > LENV_MARGIN and proprio within
+  WM_LOGIT_TOL. The whole step's frames that agree on both are counted."""
+  env = renv.lenv
+  fbt, ptr, dev = env.model, env.ptr, env.device
+  cpu_env = _env(MAIN_ENV, 'cpu')
+  bcpu = BVAE(cpu_env, AttrDict(fbt.bvae.G, device='cpu'))
+  bcpu.module.load_state_dict(fbt.bvae.module.state_dict())
+  fcpu = FBT(cpu_env, AttrDict(fbt.G, device='cpu'), bvae=bcpu)
+  fcpu.module.load_state_dict(fbt.module.state_dict())
+  wb = env.window_batch
+  wcpu = {k: v.cpu() for k, v in wb.items()}
+  u = torch.rand((env.num_envs, fbt.z_size),
+                 generator=torch.Generator().manual_seed(1))
+  far = lambda x: (x - 0.5).abs() > LENV_MARGIN
+  with torch.no_grad():
+    flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in wcpu.items()}
+    code_p = torch.sigmoid(bcpu.module.enc(flat['lcd'], flat['proprio']))
+    both = (('card', fbt, wb), ('cpu', fcpu, wcpu))
+    codes = {k: m.bvae.encode(b, noise=False).cpu() > 0.5
+             for k, m, b in both}
+    z = codes['cpu'].float()
+    p = {k: torch.sigmoid(m.module(z.to(m.device), b['action'])[:, ptr]
+                          ).cpu() for k, m, b in both}
+    zi = {k: (u < v).float() for k, v in p.items()}
+    dec = {k: m.bvae.decode(zi['cpu'].to(m.device)) for k, m, _ in both}
+    card = fbt.onestep(wb, ptr, None, u=u.to(dev))
+    cpu = fcpu.onestep(wcpu, ptr, None, u=u)
+  code_apart = codes['card'] != codes['cpu']
+  frames = {k: d['lcd'].probs.cpu() > 0.5 for k, d in dec.items()}
+  probs = dec['cpu']['lcd'].probs
+  same_frame = (card['lcd'][:, ptr].cpu() == cpu['lcd'][:, ptr]).reshape(
+      env.num_envs, -1).all(-1)
+  errs = dict(
+      codes_apart=int(code_apart.sum()),
+      codes_apart_beyond=int((code_apart & far(code_p).reshape(
+          code_apart.shape)).sum()),
+      p_err=float((p['card'] - p['cpu']).abs().max()),
+      draws_in_margin=int(((p['cpu'] - u).abs() <= LENV_MARGIN).sum()),
+      draws_apart_beyond=int(((zi['card'] != zi['cpu'])
+                              & ((p['cpu'] - u).abs() > LENV_MARGIN)).sum()),
+      frames_apart_beyond=int(((frames['card'] != frames['cpu'])
+                               & far(probs)).sum()),
+      pixels_in_margin=int((~far(probs)).sum()),
+      proprio_err=float((dec['card']['proprio'].mean.cpu()
+                         - dec['cpu']['proprio'].mean).abs().max()),
+      whole_step_frames_equal=int(same_frame.sum()))
+  log(f'[lenv] card vs CPU, one model step ({env.num_envs} envs, pointer '
+      f'{ptr}, same window batch and uniforms, float32, TF32 off): {errs}; '
+      f'gates: codes, draws and frames equal beyond {LENV_MARGIN}, p and '
+      f'proprio within {WM_LOGIT_TOL}')
+  if errs['codes_apart_beyond'] or errs['draws_apart_beyond'] or \
+      errs['frames_apart_beyond'] or not max(
+          errs['p_err'], errs['proprio_err']) <= WM_LOGIT_TOL:
+    raise RuntimeError(f'learned env: card and CPU differ: {errs}')
+  return errs
+
+
+def learned_env_phase(dev, smi, tmp, bvae, fbt, frnld):
+  """The world model served as an env on the card: RewardLenv(LearnedEnv)
+  over phase 12's FBT (body goals, one timeout), over this phase's FRNLD,
+  PreprocVecEnv over the FBT one with phase 12's BVAE, cube goals with
+  phase 13's frozen ObjectLocalizer over an untrained UrchinCube BVAE +
+  FBT at phase 12's widths, and one model step on the card against the
+  CPU."""
+  out = {}
+  renv = RewardLenv(LearnedEnv(LENV_ENVS, fbt, _lenv_G(fbt)))
+  out['fbt'] = _lenv_run('FBT learned env, Urchin body goals', renv,
+                         LENV_STEPS, smi, timed=True)
+  out['card_vs_cpu'] = _lenv_card_vs_cpu(renv)
+  out['frnld'] = _lenv_run(
+      'FRNLD learned env, Urchin body goals',
+      RewardLenv(LearnedEnv(LENV_ENVS, frnld, _lenv_G(frnld))),
+      LENV_OTHER_STEPS, smi)
+
+  penv = PreprocVecEnv(bvae, RewardLenv(LearnedEnv(LENV_ENVS, fbt,
+                                                   _lenv_G(fbt))), fbt.G)
+  gen = torch.Generator(device=dev).manual_seed(6)
+  obs = penv.reset()
+  for t in range(LENV_PREPROC_STEPS + 1):
+    with torch.no_grad():
+      for k in ('', 'goal:'):
+        z = bvae.encode({'lcd': obs[f'{k}lcd'], 'proprio': obs[f'{k}proprio']})
+        if not torch.equal(obs[f'{k}zstate'], z):
+          raise RuntimeError(f'PreprocVecEnv: {k}zstate is not the BVAE code')
+    obs = penv.step(uniform_actions(gen, (LENV_ENVS, bvae.env.act_size),
+                                    dev))[0]
+  log(f'[lenv] PreprocVecEnv over the FBT learned env: zstate and '
+      f'goal:zstate ({tuple(obs["zstate"].shape)}) equal the BVAE code at '
+      f'{LENV_PREPROC_STEPS + 1} observations')
+
+  flags = [*WM_COMMON, f'--env={EV_LOC_ENV}']
+  bG, cenv = research_main.parse_flags(['--mode=train', *flags, *WM_BVAE])
+  fG, _ = research_main.parse_flags([
+      '--mode=train', *flags, *WM_FBT, f'--arbiterdir={tmp / "loc"}'])
+  cbvae = BVAE(cenv, bG)
+  cfbt = FBT(cenv, fG, bvae=cbvae)
+  crenv = RewardLenv(LearnedEnv(LENV_ENVS, cfbt, _lenv_G(cfbt),
+                                real_env=CubeGoalEnv(cenv, fG)))
+  if crenv.obj_loc is None:
+    raise RuntimeError('cube goals: no frozen ObjectLocalizer loaded')
+  out['cube'] = _lenv_run('untrained FBT learned env, UrchinCube cube goals',
+                          crenv, LENV_OTHER_STEPS, smi)
+  return out
+
+
+def video_model_phase(dev, smi, tmp):
+  """FIT, RSSM and FRNLD (over phase 13's RNLDA) trained through
+  research.main on phase 12's data, each one's evaluate with phase 13's
+  MultiStepArbiter, --mode=eval over each, the three on the card against
+  the CPU; then the learned env (`learned_env_phase`)."""
+  data = tmp / 'data'
+  out, models = {}, {}
+  for name in ('FIT', 'RSSM', 'FRNLD'):
+    extra = [*VM_COMMON, *VM_FLAGS[name]]
+    if name == 'FRNLD':
+      extra.append(f'--weightdir={tmp / "RNLDA"}')
+    models[name], out[name] = _ev_train(name, tmp / name, data, VM_STEPS,
+                                        extra, smi)
+  arb = load_arbiter(AttrDict(arbiterdir=tmp / 'msarb'), models['FIT'].env)
+  want = ['eval/unprompted_fvd', 'eval/unprompted_precision',
+          'eval/unprompted_recall', 'eval/unprompted_f1',
+          'eval/unprompted_action_log_mse', 'eval/prompted_cosdist',
+          'eval/prompted_action_log_mse', 'eval/prompted_true_action_log_mse']
+  out['evaluate'] = {name: _ev_evaluate(name, m, data, arb, want)
+                     for name, m in models.items()}
+  out['evaler'] = {}
+  for name in models:
+    G, env = research_main.parse_flags([
+        '--mode=eval', f'--model={name}', f'--weightdir={tmp / name}',
+        f'--arbiterdir={tmp / "msarb"}', f'--logdir={tmp / "eval" / name}',
+        f'--datadir={data}', f'--eval_n={VM_EVAL_N}', *WM_COMMON,
+        *VM_COMMON])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaler, final = research_main.evaluate(G, env)
+    wall = time.perf_counter() - t0
+    with open(tmp / 'eval' / name / 'logger.pkl', 'rb') as f:
+      table = pickle.load(f)
+    keys = {f'{split}:{k}' for split in ('test', 'train') for k in EV_KEYS}
+    bad = [k for k, v in table.items() if not np.isfinite(v).all()]
+    if set(table) != keys or table != final or bad:
+      raise RuntimeError(f'{name} logger.pkl: {sorted(set(table) ^ keys)} '
+                         f'differ, {bad} not finite')
+    per_rep = -(-VM_EVAL_N // G.bs) * G.bs * 2 * 2
+    log(f'[vm] Evaler, {name} x MultiStepArbiter, {len(evaler.rep_s)} reps '
+        f'of eval_n {VM_EVAL_N} (bs {G.bs}): {wall:.1f} s; {evaler.rep_s} s '
+        f'a rep, {per_rep / np.mean(evaler.rep_s):.1f} samples/s on {smi}')
+    out['evaler'][name] = dict(wall_s=wall, rep_s=evaler.rep_s,
+                               samples_per_rep=per_rep, table=table)
+  batch = to_device(next(RolloutDataset(data / 'test', window=50)
+                         .batches(VM_CPU_BATCH)), dev)
+  out['card_vs_cpu'] = _vm_card_vs_cpu(models, batch)
+  return out, models
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument('--out', default=None, help='also write the results here')
@@ -1973,6 +2358,9 @@ def main():
     wm, (bvae, fbt) = run('world-model', world_model_phase, dev, smi,
                           Path(tmp))
     ev = run('evaluation', evaluation_phase, dev, smi, Path(tmp), bvae, fbt)
+    vm, models = run('video-models', video_model_phase, dev, smi, Path(tmp))
+    lenv = run('learned-env', learned_env_phase, dev, smi, Path(tmp), bvae,
+               fbt, models['FRNLD'])
   lt, tt, mt = kern['times'][TRIPWIRE_FRAMES], traj['times'], meg['times']
   launches = main_run['launches']
   sk = sol_path['kernels']
@@ -2016,7 +2404,7 @@ def main():
         build_s=build, ptxas=ptxas, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
         reference=ref, solver=sol, main=main_run, per_step=step_run,
         solver_path=sol_path, vec_env=vec, world_model=wm, evaluation=ev,
-        kernels=kernels,
+        video_models=vm, learned_env=lenv, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)

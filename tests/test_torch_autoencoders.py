@@ -68,9 +68,9 @@ def test_registries_hold_the_jax_models_in_order():
   assert list(ae_map) == list(jae_map) == [
       'BVAE', 'VAE', 'RNLDA', 'ArbiterAE', 'MultiStepArbiter',
       'ObjectLocalizer', 'VQVAE']
-  # the video models still to port: FIT, FRNLD, RSSM
-  assert list(net_map) == list(ae_map) + ['FBT']
-  assert set(net_map) < set(jnet_map)
+  # all four video models after the seven autoencoders, as in JAX
+  assert list(net_map) == list(jnet_map) == list(ae_map) + [
+      'FBT', 'FIT', 'FRNLD', 'RSSM']
 
 
 def test_converted_state_dict_covers_module(models):

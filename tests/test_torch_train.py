@@ -1,8 +1,9 @@
 """The port's training path: the Trainer on port-written barrels, the
 device-resident dataset (tests/test_data.py:69's packed-lcd check), the
 checkpoint's save -> load -> resume (tests/test_resume.py:34 for the
-port's `research.main`), and the README's pipeline through the port's CLI,
-collect -> BVAE -> FBT, on Dropbox at tiny widths on the CPU.
+port's `research.main`), the README's pipeline through the port's CLI,
+collect -> BVAE -> FBT, and 2 training steps of each other video model,
+on Dropbox at tiny widths on the CPU.
 """
 import pickle
 
@@ -180,6 +181,21 @@ def test_main_device_train_resumes_from_checkpoint(data, tmp_path):
   assert {'opt_state', 'gen_state', 'G'} <= set(blob)
   train(16)  # nothing left to train: the checkpoint's step stays
   assert _step_of(pkl) == 16
+
+
+@pytest.mark.parametrize('model', ['FIT', 'FRNLD', 'RSSM'])
+def test_main_trains_video_models(data, tmp_path, model):
+  """research.main --mode=train takes 2 steps of each video model beside
+  FBT through the Trainer; FRNLD over an RNLDA trained 1 step into its
+  weightdir."""
+  args = [f'--datadir={data}', '--window=5', '--prompt_n=2', *TINY]
+  if model == 'FRNLD':
+    tmain(['--mode=train', '--model=RNLDA', f'--logdir={tmp_path / "r"}',
+           '--total_itr=1', *args])
+    args.append(f'--weightdir={tmp_path / "r"}')
+  tmain(['--mode=train', f'--model={model}', f'--logdir={tmp_path / "m"}',
+         '--total_itr=2', *args])
+  assert _step_of(tmp_path / 'm' / f'{model}.pkl') == 2
 
 
 def test_device_dataset_packed_lcd(data):
