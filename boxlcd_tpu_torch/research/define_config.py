@@ -16,12 +16,17 @@ from boxlcd_tpu_torch.utils import AttrDict
 
 
 def env_fn(G, seed=None):
+  """A thunk that makes G.env on G.device, seeded; with G.goals, wrapped in
+  BodyGoalEnv (or CubeGoalEnv for a Cube env)."""
   def _make():
-    if G.goals:
-      raise NotImplementedError('single-env goal wrappers are not ported; '
-                                'research.wrappers.VecEnv takes goal_mode')
     env = env_map[G.env](G, device=G.device)
     env.seed(seed if seed is not None else G.get('seed', 0))
+    if G.goals:
+      from boxlcd_tpu_torch.research import wrappers
+      if 'Cube' not in G.env:
+        env = wrappers.BodyGoalEnv(env, G)
+      else:
+        env = wrappers.CubeGoalEnv(env, G)
     return env
   return _make
 

@@ -11,11 +11,16 @@ submodules carry the flax names, so the mapping is by name:
     kh, kw), flipped in both spatial axes (`common.ConvTranspose`); the
     rule is keyed on the module's flax name, `ConvTranspose_<i>`
   - LayerNorm/GroupNorm `scale`   -> `weight`
-  - `bias`, `embedding`, `pos_emb` as they are;
+  - `bias`, `embedding`, `pos_emb` and other raw parameters (the RL
+    PPOActor's `log_std`) as they are;
   - a GRUCell, the subtree of Dense kernels `ir iz in hr hz hn`, ->
     `common.GRUCell`'s `weight_ih` [ir; iz; in] and `weight_hh` [hr; hz;
     hn], each kernel transposed, `bias_ih` [b_ir; b_iz; b_in] and
     `bias_hn` (the order of the gates is torch.gru_cell's: r, z, n).
+The RL nets (`research/rl/nets.py`) map by the same rules: their Dense
+names (`goal_preproc`, `BaseMLP_0/Dense_<i>`, `SACFeatures_0`, ...) are
+the submodules' names, and `ImgCNN` flattens its conv features in flax's
+(h, w, c) order, so the Dense after it takes the flax kernel as it is.
 Only this direction is provided. Loading a JAX checkpoint (`.pkl`) or a
 JAX frozen arbiter (`*.frozen.pkl`, flax msgpack bytes) would need flax's
 msgpack serialization and is not supported: the port's frozen arbiters

@@ -13,8 +13,9 @@ The real env is touched only at resets: the prompts and the goals each come
 from one batched `Env.reset` + `Env.observe` (one lcd raster launch on the
 card). Observations, rewards and dones stay tensors on the device. The RL
 keys the env reads (`goal_thresh`, `lenv_temp`, `reset_prompt`,
-`lenv_goals`, `diff_delt`) belong to the RL entry point's config; `G.get`
-reads them with its defaults.
+`lenv_goals`, `diff_delt`) come from the RL entry point's config
+(`research.rl.main.rl_config`); RL_DEFAULTS serves callers whose G lacks
+them.
 """
 from __future__ import annotations
 

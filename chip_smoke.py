@@ -111,7 +111,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      1e-4, probabilities and proprio within 2e-4); the FRNLD learned env
      and cube goals (UrchinCube, the frozen ObjectLocalizer over an
      untrained BVAE + FBT) 20 steps each; PreprocVecEnv over the FBT one,
-     its zstate the BVAE's code.
+     its zstate the BVAE's code;
+  15. RL, on phase 12's FBT, through research.rl.main at research/scripts/
+     headline_rl.sh:62-84's widths (Urchin, 128 envs, bs 4096, hidden 256,
+     body goals, a test every 2nd epoch; ep_len 100 cut to 25): PPO in the
+     learned env, 2 headline epochs of 375 fused dream steps (epoch s,
+     learned env-steps/s, the 80 + 80 updates' ms, the busy share of 25
+     more profiled steps, lcd raster launches an epoch: 2 pools, + 2 for
+     the first epoch's reset), ppo.pkl reloaded to the same mean actions
+     bit for bit; PPO in the real env, one fused epoch of 10 steps (cut
+     from 375; ms a step, at least one lcd launch a step); eval_policy on
+     the learned-env checkpoint (ITERS 10 cut to 1: 100 episodes, the
+     evidence in the temp folder); SAC's replay run (cnn, 16 envs, one
+     burst of update_every 40) and firehose (the learned env, mlp, 50
+     iterations), ms an update, parameters moved; every run's logged values
+     finite and no kernel but the lcd raster launched; one PPO pi and v
+     update, one SAC update (cnn) and their forwards on the card against
+     the CPU (phase 12's gates).
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -120,6 +136,7 @@ no result. --out writes the measurements as JSON as well.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -147,6 +164,7 @@ from boxlcd_tpu_torch.engine.spec import CIRCLE
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
 from boxlcd_tpu_torch.research import main as research_main
+from boxlcd_tpu_torch.research import utils as research_utils
 from boxlcd_tpu_torch.research.nets._base import autocast, to_device
 from boxlcd_tpu_torch.research.nets.autoencoders import (
     ArbiterAE, MultiStepArbiter, ObjectLocalizer)
@@ -154,6 +172,12 @@ from boxlcd_tpu_torch.research.nets.autoencoders.bvae import BVAE
 from boxlcd_tpu_torch.research.runners.trainer import load_arbiter
 from boxlcd_tpu_torch.research.nets.video_models._base import uniform_actions
 from boxlcd_tpu_torch.research.nets.video_models.fbt import FBT
+from boxlcd_tpu_torch.research.rl import main as rl_main
+from boxlcd_tpu_torch.research.rl.nets import gaussian_logp
+from boxlcd_tpu_torch.research.rl._base import RLAlgo
+from boxlcd_tpu_torch.research.rl.ppo import PPO, adam, pool_size
+from boxlcd_tpu_torch.research.rl.sac import SAC
+from boxlcd_tpu_torch.research.scripts import eval_policy
 from boxlcd_tpu_torch.research.wrappers import (
     CubeGoalEnv, LearnedEnv, PreprocVecEnv, RewardLenv, VecEnv)
 from boxlcd_tpu_torch.utils import AttrDict, set_tf32
@@ -391,13 +415,20 @@ def profiled(fn, n):
     for _ in range(n):
       fn()
     torch.cuda.synchronize()
-  # only the device's own events: a CPU op's self device time repeats the
-  # durations of the kernels it launched
+  ms, events = _device_time(prof)
+  return (None if ms is None else ms / n), events / n
+
+
+def _device_time(prof):
+  """(device ms or None, device events) of a finished profile: the summed
+  durations of its kernels and copies. Only the device's own events: a
+  CPU op's self device time repeats the durations of the kernels it
+  launched."""
   dev = [e for e in prof.events()
          if e.device_type == torch.autograd.DeviceType.CUDA
          and not getattr(e, 'is_user_annotation', False)]
   us = sum(e.device_time_total for e in dev)
-  return (us / 1e3 / n if us > 0 else None), len(dev) / n
+  return (us / 1e3 if us > 0 else None), len(dev)
 
 
 def profiled_ms(fn, n):
@@ -1060,8 +1091,10 @@ def per_step_phase(dev, smi):
   act = torch.rand((MAIN_BATCH, env.act_size), generator=gen, device=dev)
   frame = raster.lcd_render(env.spec, st.is_circle, st.c, st.a, env.lcd_w,
                             env.lcd_h)
+  # the plain physics step (~43,000 launches) timed and profiled over one
+  # step, the others over 20
   layers = {
-      'physics': (2, lambda: physics.step_world_batch(env.spec, st, act)),
+      'physics': (1, lambda: physics.step_world_batch(env.spec, st, act)),
       'raster': (20, lambda: raster.lcd_render(
           env.spec, st.is_circle, st.c, st.a, env.lcd_w, env.lcd_h)),
       'obs_packing': (20, lambda: (
@@ -2325,6 +2358,401 @@ def video_model_phase(dev, smi, tmp):
   return out, models
 
 
+# phase 15, RL: on phase 12's Urchin data and FBT, through the port's
+# research.rl.main at research/scripts/headline_rl.sh:62-84's widths (128
+# envs, minibatches of 4096, 256-wide nets, body goals, a test every 2nd
+# epoch); ep_len 100 cut to 25 (each real-env test is ep_len VecEnv steps
+# at 0.6-0.9 s)
+RL_COMMON = ['--env=Urchin', '--vel_iters=8', '--pos_iters=4',
+             '--num_envs=128', '--bs=4096', '--hidden_size=256',
+             '--ep_len=25', '--test_n=2']
+RL_LENV_EPOCHS = 2            # 375 fused steps each: the headline epoch
+RL_PROFILED_STEPS = 25        # dream steps profiled for the busy share
+RL_LENV = ['--lenv=1', '--model=FBT', '--steps_per_epoch=48000',
+           f'--total_steps={48000 * RL_LENV_EPOCHS}', '--lenv_test=0']
+RL_REAL_STEPS = 10            # the headline epoch's 375 steps, cut
+RL_REAL = ['--lenv=0', f'--steps_per_epoch={128 * RL_REAL_STEPS}',
+           f'--total_steps={128 * RL_REAL_STEPS}']
+RL_EVAL_ITERS = 1             # eval_policy's ITERS 10 (N = 1000), cut
+RL_EVAL = []                  # eval_policy's flags beside --logdir
+# SAC's replay run: 16 envs, 2 random start steps, then one burst of
+# update_every = 40 updates at minibatches of 512 (a 4096-row cnn batch
+# of four 16x32 frames a row would gather 1.3 GB a burst on the host)
+RL_SAC_RUN = ['--lenv=0', '--net=cnn', '--num_envs=16', '--bs=512',
+              '--total_steps=48', '--start_steps=32', '--update_after=32',
+              '--update_every=40']
+RL_FIRE_ITERS = 50            # firehose iterations; one test, log and save
+RL_SAC_FIRE = ['--lenv=1', '--model=FBT', '--net=mlp', '--firehose=1',
+               f'--total_steps={RL_FIRE_ITERS}',
+               f'--log_n={10 * RL_FIRE_ITERS}']
+
+
+class ScalarWriter:
+  """The writer's surface, keeping the logged scalars."""
+
+  def __init__(self):
+    self.scalars = []
+
+  def add_scalar(self, tag, value, *a, **k):
+    self.scalars.append((tag, float(value)))
+
+  def add_image(self, *a, **k):
+    pass
+
+  add_video = add_image
+
+  def flush(self):
+    pass
+
+
+class Timed:
+  """Wraps methods of classes while the context lasts: each call's wall ms
+  (synchronised before and after) and the lcd raster launches it made,
+  kept in `calls[name]`."""
+
+  def __init__(self, targets):
+    self.targets = targets
+    self.calls = {name: [] for _, name in targets}
+
+  def _wrap(self, name, fn):
+    def timed(*a, **k):
+      torch.cuda.synchronize()
+      lcd0 = cuda_raster.LAUNCHES
+      t0 = time.perf_counter()
+      out = fn(*a, **k)
+      torch.cuda.synchronize()
+      self.calls[name].append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                   lcd=cuda_raster.LAUNCHES - lcd0))
+      return out
+    return timed
+
+  def __enter__(self):
+    self.saved = [(cls, name, cls.__dict__[name]) for cls, name in
+                  self.targets]
+    for cls, name, fn in self.saved:
+      setattr(cls, name, self._wrap(name, fn))
+    return self
+
+  def __exit__(self, *exc):
+    for cls, name, fn in self.saved:
+      setattr(cls, name, fn)
+
+
+def _rl_run(label, argv, writer, logs=True):
+  """rl.main over argv with the launch counts set to 0 just before and
+  read just after; every logged scalar finite (and, with `logs`, some
+  logged), no kernel but the lcd raster launched. Returns (algo, wall s,
+  launches)."""
+  writer.scalars.clear()
+  _zero_launches()
+  t0 = time.perf_counter()
+  algo = rl_main.main(argv)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = _launches()
+  bad = [(k, v) for k, v in writer.scalars if not np.isfinite(v)]
+  log(f'[rl] {label}: {wall:.2f} s; launches {launches}; '
+      f'{len(writer.scalars)} scalars logged, '
+      f'{sorted({k for k, _ in writer.scalars})}')
+  if (logs and not writer.scalars) or bad:
+    raise RuntimeError(f'{label}: logged scalars {bad or "none"}')
+  if launches != _expect(lcd_raster=launches['lcd_raster']) or \
+      not launches['lcd_raster']:
+    raise RuntimeError(f'{label}: launches {launches}')
+  return algo, wall, launches
+
+
+def _logged(writer, tag):
+  return [v for k, v in writer.scalars if k == tag]
+
+
+def _moved(net, target):
+  """Whether SAC's parameters left their initial values: the target
+  starts equal to the net and follows it by polyak averaging, so they
+  differ only once the net moved."""
+  return any(not torch.equal(p, q) for p, q in
+             zip(net.parameters(), target.parameters()))
+
+
+def _cpu_twin(algo, modules):
+  """A shallow copy of an RL algo with `modules` deep-copied to the CPU."""
+  twin = copy.copy(algo)
+  twin.device = torch.device('cpu')
+  for name in modules:
+    setattr(twin, name, copy.deepcopy(getattr(algo, name)).cpu())
+  return twin
+
+
+def _opt_twin(opt, params):
+  """Adam over `params` with a copy of `opt`'s learning rate and state."""
+  new = adam(params, opt.param_groups[0]['lr'])
+  new.load_state_dict(copy.deepcopy(opt.state_dict()))
+  return new
+
+
+def _tree(x, dev):
+  if isinstance(x, dict):
+    return {k: _tree(v, dev) for k, v in x.items()}
+  return torch.as_tensor(np.asarray(x), device=dev)
+
+
+def _max_diff(a, b):
+  if isinstance(a, dict):
+    return max(_max_diff(a[k], b[k]) for k in a)
+  if isinstance(a, (tuple, list)):
+    return max(_max_diff(x, y) for x, y in zip(a, b))
+  return float((a.detach().cpu().double() - b.detach().cpu().double()
+                ).abs().max())
+
+
+def _rel_diff(a, b):
+  a, b = float(a), float(b)
+  return abs(a - b) / abs(b)
+
+
+def _rl_card_vs_cpu(ppo, sac):
+  """One PPO pi and v update, one SAC update (cnn) and their forwards on
+  the card against CPU twins (same state dicts and optimizer states, same
+  batch and normals), TF32 off; phase 12's gates: outputs and parameters
+  within WM_LOGIT_TOL, losses within WM_LOSS_RTOL relative."""
+  rng = np.random.RandomState(3)
+  G, dev = ppo.G, ppo.device
+  n = int(G.bs)
+  out, losses = {}, {}
+  # PPO: the batch's old logp sits 0.05 below the policy's, so kl != 0,
+  # and its advantages at mean 1: at a buffer's normalised mean 0 the loss
+  # is a cancellation of +-1 terms, and a relative gate on it reads the
+  # cancellation, not the devices
+  S = ppo.obs_space[G.state_key].shape[-1]
+  obs = {k: rng.uniform(-1, 1, (n, S)).astype(np.float32)
+         for k in (G.state_key, ppo.goal_key)}
+  eps = rng.randn(n, ppo.act_space.shape[-1]).astype(np.float32)
+  with torch.no_grad():
+    mu, std = ppo.ac.policy(_tree(obs, dev))
+    act = mu + std * _tree(eps, dev)
+    logp = gaussian_logp(mu, std, act).cpu().numpy()
+  batch = {'obs': obs, 'act': act.cpu().numpy(),
+           'logp': (logp - 0.05 + 0.1 * rng.randn(n)).astype(np.float32),
+           'adv': (1 + rng.randn(n)).astype(np.float32),
+           'ret': rng.randn(n).astype(np.float32)}
+  twin = _cpu_twin(ppo, ['ac'])
+  twin.pi_opt = _opt_twin(ppo.pi_opt, twin.ac.pi.parameters())
+  twin.v_opt = _opt_twin(ppo.v_opt, twin.ac.v.parameters())
+  cb, tb = _tree(batch, dev), _tree(batch, 'cpu')
+  with torch.no_grad():
+    out['ppo_forward'] = _max_diff(ppo.ac(cb['obs']), twin.ac(tb['obs']))
+  values = {}
+  for name, a, b in zip(('pi', 'kl', 'entropy'), ppo._pi_update(cb),
+                        twin._pi_update(tb)):
+    losses[f'ppo_{name}'] = _rel_diff(a, b)
+    values[f'ppo_{name}'] = float(b)
+  a, b = ppo._v_update(cb), twin._v_update(tb)
+  losses['ppo_v'], values['ppo_v'] = _rel_diff(a, b), float(b)
+  out['ppo_params'] = _max_diff(ppo.ac.state_dict(), twin.ac.state_dict())
+  # SAC, cnn: a replay batch and the normals of both actor draws
+  sbatch = sac.buf.sample_batch(np.random.RandomState(4), int(sac.G.bs))
+  A = sac.act_space.shape[-1]
+  seps = [rng.randn(len(sbatch['rew']), A).astype(np.float32)
+          for _ in range(2)]
+  twin = _cpu_twin(sac, ['net', 'target'])
+  twin.log_alpha = sac.log_alpha.detach().cpu().clone().requires_grad_(True)
+  twin.pi_params = list(twin.net.pi.parameters())
+  twin.q_params = [*twin.net.q1.parameters(), *twin.net.q2.parameters()]
+  twin.pi_opt = _opt_twin(sac.pi_opt, twin.pi_params)
+  twin.q_opt = _opt_twin(sac.q_opt, twin.q_params)
+  twin.a_opt = _opt_twin(sac.a_opt, [twin.log_alpha])
+  cb, tb = _tree(sbatch, dev), _tree(sbatch, 'cpu')
+  with torch.no_grad():
+    out['sac_forward'] = _max_diff(
+        sac.net(cb['obs'], cb['act'], eps=_tree(seps[0], dev)),
+        twin.net(tb['obs'], tb['act'], eps=_tree(seps[0], 'cpu')))
+  cm = sac.update(cb, *[_tree(e, dev) for e in seps])
+  tm = twin.update(tb, *[_tree(e, 'cpu') for e in seps])
+  for k in ('loss/q', 'loss/pi', 'loss/alpha'):
+    losses[f'sac_{k}'] = _rel_diff(cm[k], tm[k])
+    values[f'sac_{k}'] = float(tm[k])
+  out['sac_metrics'] = max(_max_diff(cm[k], tm[k]) for k in
+                           ('q1', 'q2', 'alpha', 'logp'))
+  out['sac_params'] = max(_max_diff(sac.net.state_dict(),
+                                    twin.net.state_dict()),
+                          _max_diff(sac.target.state_dict(),
+                                    twin.target.state_dict()),
+                          _max_diff(sac.log_alpha, twin.log_alpha))
+  log(f'[rl] card vs CPU (float32 both, TF32 off, same state dicts, '
+      f'optimizer states and batch; PPO {n} rows, SAC cnn '
+      f'{len(sbatch["rew"])}): outputs and parameters {out}, losses '
+      f'(relative) {losses} of the CPU\'s {values}; gates {WM_LOGIT_TOL} '
+      f'abs, {WM_LOSS_RTOL} rel')
+  if max(out.values()) > WM_LOGIT_TOL or max(losses.values()) > WM_LOSS_RTOL:
+    raise RuntimeError(f'RL: card and CPU differ: {out} {losses}')
+  return dict(out, losses=losses, values=values)
+
+
+def rl_phase(dev, smi, tmp):
+  """The RL chain on the card through research.rl.main and eval_policy,
+  over phase 12's FBT (`tmp`/fbt): PPO in the learned env (the fused dream
+  epoch, 2 headline epochs), PPO in the real env (the fused real epoch),
+  eval_policy on the learned-env checkpoint, SAC's replay run (cnn) and
+  firehose (the learned env, mlp), then card against CPU."""
+  set_tf32(False)
+  writer = ScalarWriter()
+  saved_writer = research_utils.make_writer
+  research_utils.make_writer = lambda logdir: writer
+  saved_eval = eval_policy.ITERS, eval_policy.EVIDENCE_DIR
+  eval_policy.ITERS, eval_policy.EVIDENCE_DIR = RL_EVAL_ITERS, tmp / 'evidence'
+  out = {}
+  try:
+    # 1. PPO in the learned env: the epochs' rollouts and updates timed,
+    # the mean actions kept when ppo.pkl is written; then RL_PROFILED_STEPS
+    # more dream steps profiled
+    ldir = tmp / 'ppo_lenv'
+    kept = {}
+    save = PPO.save
+
+    def keep_save(self, direc, name='ppo.pkl'):
+      if name == 'ppo.pkl':
+        g = torch.Generator(device=dev).manual_seed(8)
+        n = self.obs_space[self.G.state_key].shape[-1]
+        kept['obs'] = {k: torch.rand((64, n), generator=g, device=dev) * 2 - 1
+                       for k in (self.G.state_key, self.goal_key)}
+        kept['a'] = self.get_a(kept['obs'], deterministic=True)
+      return save(self, direc, name)
+    PPO.save = keep_save
+    try:
+      with Timed([(PPO, 'lenv_rollout'), (PPO, 'update'),
+                  (PPO, '_run_fused_lenv_epoch'), (RLAlgo, 'test_agent')]
+                 ) as t:
+        ppo, wall, launches = _rl_run(
+            'PPO, learned env (FBT)', [*RL_COMMON, *RL_LENV,
+                                       f'--weightdir={tmp / "fbt"}',
+                                       f'--logdir={ldir}', 'ppo'], writer)
+    finally:
+      PPO.save = save
+    roll, upd = t.calls['lenv_rollout'], t.calls['update']
+    epochs = t.calls['_run_fused_lenv_epoch']
+    steps = ppo.steps_per_epoch
+    B = ppo.G.num_envs
+    # an epoch as dt/epoch measures it: the rollout, the GAE buffer's fill
+    # and the update
+    epoch_s = [(e['ms'] + u['ms']) / 1e3 for e, u in zip(epochs, upd)]
+    step_ms = [c['ms'] / steps for c in roll]
+    dev_ms, events = profiled(
+        lambda: ppo.lenv_rollout(*ppo._lenv_state, RL_PROFILED_STEPS), 1)
+    dev_step = None if dev_ms is None else dev_ms / RL_PROFILED_STEPS
+    busy = None if dev_step is None else dev_step / min(step_ms)
+    pool = pool_size(B)
+    log(f'[rl] PPO learned env: {len(epochs)} epochs of {steps} fused steps '
+        f'x {B} envs; epoch s {epoch_s}; rollout '
+        f'{[round(c["ms"], 1) for c in roll]} ms, {step_ms} ms a step, '
+        f'{B * 1e3 / min(step_ms):.1f} learned env-steps/s; updates (80 pi '
+        f'+ 80 v, bs {ppo.G.bs}) {[round(c["ms"], 1) for c in upd]} ms; '
+        f'device {_fmt(dev_step)} a step in '
+        f'{events / RL_PROFILED_STEPS:.0f} events ({RL_PROFILED_STEPS} '
+        f'steps profiled), busy {busy} of the faster epoch\'s step; lcd '
+        f'launches an epoch {[c["lcd"] for c in epochs]} (2 pools of {pool}; '
+        f'the first epoch also resets: goals, prompts); real-env test '
+        f'{[round(c["ms"]) for c in t.calls["test_agent"]]} ms on {smi}')
+    if [c['lcd'] for c in epochs] != [4] + [2] * (len(epochs) - 1):
+      raise RuntimeError(f'PPO learned env: lcd launches an epoch '
+                         f'{[c["lcd"] for c in epochs]}')
+    if len(epochs) != RL_LENV_EPOCHS or not (ldir / 'ppo.pkl').exists():
+      raise RuntimeError(f'PPO learned env: epochs {epoch_s}, ppo.pkl '
+                         f'{(ldir / "ppo.pkl").exists()}')
+    ppo.load(ldir)
+    again = ppo.get_a(kept['obs'], deterministic=True)
+    if not torch.equal(again, kept['a']):
+      raise RuntimeError('ppo.pkl reloaded gives other mean actions')
+    log(f'[rl] ppo.pkl reloaded: the mean actions of {len(again)} test '
+        f'observations bit for bit')
+    out['ppo_lenv'] = dict(
+        wall_s=wall, launches=launches, epoch_s=epoch_s,
+        rollout_ms=[c['ms'] for c in roll], step_ms=step_ms,
+        env_steps_per_s=B * 1e3 / min(step_ms),
+        update_ms=[c['ms'] for c in upd], busy=busy,
+        device_ms_a_step=dev_step, events_a_step=events / RL_PROFILED_STEPS,
+        lcd_an_epoch=[c['lcd'] for c in epochs],
+        test_ms=[c['ms'] for c in t.calls['test_agent']])
+
+    # 2. PPO in the real env, the fused epoch
+    with Timed([(PPO, 'rollout'), (PPO, 'update')]) as t:
+      real, wall, launches = _rl_run(
+          'PPO, real env', [*RL_COMMON, *RL_REAL,
+                            f'--logdir={tmp / "ppo_real"}', 'ppo'], writer)
+    (roll,) = t.calls['rollout']
+    ms_step = roll['ms'] / RL_REAL_STEPS
+    B = real.G.num_envs
+    log(f'[rl] PPO real env: {RL_REAL_STEPS} fused steps x {B} envs in '
+        f'{roll["ms"]:.1f} ms, {ms_step:.2f} ms a step, '
+        f'{B * 1e3 / ms_step:.1f} env-steps/s; lcd launches '
+        f'{roll["lcd"]} ({roll["lcd"] / RL_REAL_STEPS:.1f} a step); update '
+        f'{t.calls["update"][0]["ms"]:.1f} ms on {smi}')
+    if roll['lcd'] < RL_REAL_STEPS:
+      raise RuntimeError(f'PPO real env: {roll["lcd"]} lcd launches in '
+                         f'{RL_REAL_STEPS} steps')
+    out['ppo_real'] = dict(wall_s=wall, launches=launches,
+                           rollout_ms=roll['ms'], ms_a_step=ms_step,
+                           lcd=roll['lcd'],
+                           update_ms=t.calls['update'][0]['ms'])
+
+    # 3. eval_policy on (1)'s checkpoint
+    _zero_launches()
+    t0 = time.perf_counter()
+    rate = eval_policy.main([f'--logdir={ldir}', *RL_EVAL, 'ppo'])
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    evidence = sorted((tmp / 'evidence').glob('*.json'))
+    with open(ldir / 'eval_policy.pkl', 'rb') as f:
+      saved = pickle.load(f)
+    ev = json.loads(evidence[0].read_text()) if evidence else {}
+    log(f'[rl] eval_policy on the learned-env checkpoint: success '
+        f'{rate} over {RL_EVAL_ITERS * eval_policy.N_ENVS} episodes in '
+        f'{wall:.1f} s; launches {launches}; evidence {ev}')
+    if not 0 <= rate <= 1 or saved != {'success_rate': rate} or \
+        len(evidence) != 1 or ev.get('trained_in') != 'learned_sim' or \
+        launches != _expect(lcd_raster=launches['lcd_raster']):
+      raise RuntimeError(f'eval_policy: {rate} {saved} {evidence} {launches}')
+    out['eval_policy'] = dict(success_rate=rate, wall_s=wall,
+                              launches=launches, evidence=ev)
+
+    # 4. SAC: the replay run (cnn, real env) and the firehose (learned env)
+    with Timed([(SAC, 'update_burst')]) as t:
+      sac, wall, launches = _rl_run(
+          'SAC run, real env, cnn', [*RL_COMMON, *RL_SAC_RUN,
+                                     f'--logdir={tmp / "sac"}', 'sac'],
+          writer, logs=False)   # no test and no log before t = 4000
+    (burst,) = t.calls['update_burst']
+    n = int(sac.G.update_every)
+    logged = {k: np.asarray(v, np.float64) for k, v in sac.logger.items()}
+    log(f'[rl] SAC run: one burst of {n} updates (bs {sac.G.bs}) in '
+        f'{burst["ms"]:.1f} ms, {burst["ms"] / n:.2f} ms an update; metrics '
+        f'{ {k: float(v.mean()) for k, v in logged.items()} } on {smi}')
+    if not _moved(sac.net, sac.target) or not all(
+        np.isfinite(v).all() for v in logged.values()) or \
+        'loss/q' not in logged:
+      raise RuntimeError(f'SAC run: parameters did not move or metrics '
+                         f'{logged}')
+    with Timed([(SAC, 'update')]) as t:
+      fire, wall, launches = _rl_run(
+          'SAC firehose, learned env (FBT), mlp',
+          [*RL_COMMON, *RL_SAC_FIRE, f'--weightdir={tmp / "fbt"}',
+           f'--logdir={tmp / "sac_fire"}', 'sac'], writer)
+    ms = [c['ms'] for c in t.calls['update']]
+    log(f'[rl] SAC firehose: {len(ms)} updates on {fire.G.num_envs}-row '
+        f'transition batches, {np.mean(ms[1:]):.2f} ms an update (after the '
+        f'first, {ms[0]:.1f}); fps {_logged(writer, "fps")} on {smi}')
+    if not _moved(fire.net, fire.target) or len(ms) != RL_FIRE_ITERS:
+      raise RuntimeError('SAC firehose: parameters did not move')
+    out['sac'] = dict(burst_ms=burst['ms'], ms_an_update=burst['ms'] / n,
+                      firehose_update_ms=ms, firehose_launches=launches,
+                      firehose_wall_s=wall)
+    # 5. card against CPU
+    out['card_vs_cpu'] = _rl_card_vs_cpu(ppo, sac)
+  finally:
+    research_utils.make_writer = saved_writer
+    eval_policy.ITERS, eval_policy.EVIDENCE_DIR = saved_eval
+  return out
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument('--out', default=None, help='also write the results here')
@@ -2361,6 +2789,7 @@ def main():
     vm, models = run('video-models', video_model_phase, dev, smi, Path(tmp))
     lenv = run('learned-env', learned_env_phase, dev, smi, Path(tmp), bvae,
                fbt, models['FRNLD'])
+    rl = run('rl', rl_phase, dev, smi, Path(tmp))
   lt, tt, mt = kern['times'][TRIPWIRE_FRAMES], traj['times'], meg['times']
   launches = main_run['launches']
   sk = sol_path['kernels']
@@ -2404,7 +2833,7 @@ def main():
         build_s=build, ptxas=ptxas, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
         reference=ref, solver=sol, main=main_run, per_step=step_run,
         solver_path=sol_path, vec_env=vec, world_model=wm, evaluation=ev,
-        video_models=vm, learned_env=lenv, kernels=kernels,
+        video_models=vm, learned_env=lenv, rl=rl, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)
