@@ -236,6 +236,7 @@ class WorldEnv(Env):
     self._gen = torch.Generator(device=self.device)
     self._gen.manual_seed(0)
     self._state = None
+    self.viewer = None   # made by the first render('human')
 
   def seed(self, seed=None):
     self._gen.manual_seed(0 if seed is None else seed)
@@ -274,8 +275,25 @@ class WorldEnv(Env):
     return raster.lcd_render(self.spec, st.is_circle, st.c, st.a, width,
                              height)[0].cpu().numpy()
 
-  def render(self, mode='rgb_array', *_, **__):
-    """rgb_array -> the LCD frame as numpy (H, W) bool."""
-    if mode == 'human':
-      raise NotImplementedError('the human viewer is not ported yet')
-    return self.lcd_render()
+  def render(self, mode='rgb_array', *_, return_pyglet_view=False, **__):
+    """rgb_array -> the LCD frame as numpy (H, W) bool; human -> the 8x RGB
+    render and the upscaled LCD side by side, with a 1-pixel separator,
+    shown through the viewer (a pyglet window where one opens, else an
+    ArrayViewer that records it; reference: world_env.py:514-535). Returns
+    the composed (8H, 16W + 1, 3) uint8 image, or with return_pyglet_view
+    what the viewer read back."""
+    lcd = self.lcd_render()
+    if mode != 'human':
+      return lcd
+    st = self._state
+    hi = raster.rgb_render(self.spec, st.is_circle, st.c, st.a,
+                           self.lcd_w * 8, self.lcd_h * 8)[0].cpu().numpy()
+    low = (255 * lcd.astype(np.uint8))[:, :, None]
+    low = low.repeat(8, 0).repeat(8, 1).repeat(3, 2)
+    sep = np.zeros((hi.shape[0], 1, 3), np.uint8)
+    img = np.concatenate([hi, sep, low], axis=1)
+    if self.viewer is None:
+      from boxlcd_tpu_torch.viewer import make_viewer
+      self.viewer = make_viewer(self.lcd_w * 8, self.lcd_h * 8, self.G)
+    out = self.viewer.render(img, return_rgb_array=return_pyglet_view)
+    return out if return_pyglet_view else img

@@ -1,15 +1,21 @@
-"""Research CLI: collect / train / eval (the port of research/main.py).
+"""Research CLI: collect / train / eval / viz / fiddle (the port of
+research/main.py).
 
     python -m boxlcd_tpu_torch.research.main --mode=collect --env=Urchin ...
     python -m boxlcd_tpu_torch.research.main --mode=train --model=BVAE ...
     python -m boxlcd_tpu_torch.research.main --mode=eval --model=FBT \
         --weightdir=<FBT logdir> --arbiterdir=<MultiStepArbiter logdir> ...
+    python -m boxlcd_tpu_torch.research.main --mode=viz --model=FBT \
+        --weightdir=<FBT logdir> [--optimize_actions=1] [--interactive=1]
+    python -m boxlcd_tpu_torch.research.main --mode=fiddle --model=BVAE \
+        --weightdir=<BVAE logdir> --datadir=<barrels>
+    python -m boxlcd_tpu_torch.research.main --ipython_mode=1 \
+        [--model=FBT --weightdir=<FBT logdir>]
 
 Keeps the reference's config-resume chain: flags -> datadir/hps.yaml
 inheritance -> weightdir/hps.yaml inheritance -> derived lcd dims
 (reference: main.py:31-55). Runs on the card unless --device=cpu, with
-TF32 off. The viz and fiddle modes and ipython_mode are not ported yet and
-raise.
+TF32 off.
 """
 from __future__ import annotations
 
@@ -118,12 +124,56 @@ def evaluate(G, env):
   return evaler, evaler.run()
 
 
+def load_model(G, env):
+  """G.model over `env` from the checkpoint in G.weightdir: its own config,
+  with G's logdir and datadir (its weightdir stays the checkpoint's: FBT
+  finds its frozen BVAE there), and its weights."""
+  from boxlcd_tpu_torch.research.nets import net_map
+  from boxlcd_tpu_torch.research.nets._base import Net
+  mG = Net.load_config(G.weightdir, G.model)
+  mG.update(logdir=G.logdir, datadir=G.datadir)
+  model = net_map[G.model](env, mG)
+  model.load(G.weightdir)
+  return model
+
+
+def visualize(G, env, n_rollouts=4):
+  """--mode=viz: the InteractiveVizer with G.interactive (the headless
+  Vizer's replay where no pyglet window opens), else the Vizer, over
+  G.weightdir's G.model; gifs into G.logdir. Returns the runner and its
+  rollouts."""
+  from boxlcd_tpu_torch.research.runners import InteractiveVizer, Vizer
+  viz_cls = InteractiveVizer if G.get('interactive', 0) else Vizer
+  runner = viz_cls(load_model(G, env), env, G)
+  return runner, runner.run(n_rollouts)
+
+
+def fiddle(G, env):
+  """--mode=fiddle: the Fiddler over G.weightdir's G.model on a test batch
+  of G.datadir; writes G.logdir/vec_weights.pkl. Returns the weights."""
+  from boxlcd_tpu_torch.research.runners import Fiddler
+  return Fiddler(load_model(G, env), env, G).run()
+
+
+def ipython(G, env):
+  """ipython_mode: a REPL with env and G (and the model, where a weightdir
+  is given) in scope (reference: research/main.py:77-83). IPython is
+  imported here only."""
+  model = None
+  if G.get('weightdir') and str(G.weightdir) not in ('', '.'):
+    model = load_model(G, env)
+  import IPython
+  IPython.embed(colors='neutral')
+  return model
+
+
 def main(argv=None):
   set_tf32(False)   # float32 is float32 on the card; bfloat16 is asked for
   G, env = parse_flags(argv)
   print(f'mode={G.mode} env={G.env} model={G.model} device={G.device}')
   if G.get('ipython_mode', 0):
-    raise NotImplementedError('ipython_mode is not ported yet')
+    ipython(G, env)
+    return
   if G.mode == 'collect':
     from boxlcd_tpu_torch.data import collect
     collect(env_fn(G), G)
@@ -131,8 +181,10 @@ def main(argv=None):
     train(G, env)
   elif G.mode == 'eval':
     evaluate(G, env)
-  elif G.mode in ('viz', 'fiddle'):
-    raise NotImplementedError(f'mode={G.mode} is not ported yet')
+  elif G.mode == 'viz':
+    visualize(G, env)
+  elif G.mode == 'fiddle':
+    fiddle(G, env)
   else:
     raise ValueError(f'unknown mode {G.mode}')
 

@@ -1,2 +1,3 @@
 """Scripts of the port (the counterpart of the JAX package's
-`research/scripts/`): `eval_policy`."""
+`research/scripts/`): `eval_policy`, and the media makers `demo_gifs`,
+`lcd_wave`, `sample_model` and `viz_goal`."""

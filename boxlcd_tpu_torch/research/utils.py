@@ -1,6 +1,6 @@
-"""Research utilities: logging, timers, the writer, gif/video helpers (the
-port of research/utils.py). The logger keeps the `dt/*` scalar names and
-rewrites hps.yaml on every dump."""
+"""Research utilities: logging, timers, the writer, small array helpers and
+gif/video helpers (the port of research/utils.py). The logger keeps the
+`dt/*` scalar names and rewrites hps.yaml on every dump."""
 from __future__ import annotations
 
 import time
@@ -11,6 +11,11 @@ from pathlib import Path
 import numpy as np
 import torch
 import yaml
+
+
+def flatten_first(x):
+  """(A, B, ...) -> (A*B, ...) (reference: utils.py flatten_first)."""
+  return x.reshape(-1, *x.shape[2:])
 
 
 def _host(val):
@@ -97,9 +102,39 @@ def make_writer(logdir):
 
 # -- media helpers (reference: research/utils.py:87-164, 203-247) -------------
 
+def force_shape(out, N=4):
+  """Tile a batch of images into an N-wide grid (reference:
+  utils.py:110-131)."""
+  out = np.asarray(out)
+  bs = out.shape[0]
+  rows = int(np.ceil(bs / N))
+  pad = rows * N - bs
+  if pad:
+    out = np.concatenate([out, np.zeros((pad, *out.shape[1:]), out.dtype)])
+  grid = out.reshape(rows, N, *out.shape[1:])
+  return np.concatenate(np.concatenate(grid, axis=-2), axis=-1)
+
+
+def combine_imgs(imgs, row=1, col=1):
+  """(B, T, H, W) -> tiled (T, H*row, W*col) video strip
+  (reference: utils.py:133-164)."""
+  imgs = np.asarray(imgs)
+  B, T = imgs.shape[:2]
+  if B < row * col:
+    raise ValueError(f'need {row * col} videos, have {B}')
+  sel = imgs[:row * col].reshape(row, col, T, *imgs.shape[2:])
+  return np.concatenate(np.concatenate(sel, axis=-2), axis=-1)
+
+
 def write_gif(path, frames, fps=10, upscale=8):
-  """(T, H, W) float/bool [0,1] -> animated gif (reference: utils.py:87-108)."""
-  from PIL import Image
+  """(T, H, W) float/bool [0,1] -> animated gif (reference: utils.py:87-108);
+  the frames as `<path>.npz` where Pillow is not installed. Returns the
+  path written."""
+  try:
+    from PIL import Image
+  except ImportError:
+    np.savez_compressed(str(path) + '.npz', frames=np.asarray(frames))
+    return str(path) + '.npz'
   frames = np.asarray(frames, np.float32)
   frames = frames.repeat(upscale, -2).repeat(upscale, -1)
   imgs = [Image.fromarray((255 * f).astype(np.uint8)) for f in frames]

@@ -6,7 +6,9 @@ torch tensors alike:
   - AttrDict            flat config object ("G")
   - A                   concise array constructor
   - mapto / rmapto      the [-1, 1] <-> physical-bounds mapping (obs contract)
-  - sortdict / filtlist / nfiltlist helpers
+  - NamedArray          dict-style access into a packed state vector
+  - sortdict / subdlist / filtdict / nfiltdict / filtlist / nfiltlist
+  - get_angle / make_rot  small geometry helpers
   - resolve_device      the device rule of the port's entry points
   - args_type           CLI flag coercion from a default value's type
   - NUM_SMS / MAX_SHARED_BYTES  the card's facts that launch geometry uses
@@ -87,6 +89,57 @@ def rmapto(a, lowhigh):
   return (a - lo) / (hi - lo) * 2.0 - 1.0
 
 
+class NamedArray:
+  """Dict-style access into a packed vector, with optional bounds mapping.
+
+  Works on numpy arrays of shape (..., N). Mirrors the observation
+  encoding contract of the reference (boxLCD/utils.py:33-101): reading a key
+  un-normalizes from [-1,1] to its bounds; writing normalizes into [-1,1].
+  """
+
+  def __init__(self, arr, arr_info, do_map=True):
+    self.arr = arr
+    self.arr_info = arr_info
+    self._keys = list(arr_info.keys())
+    self.do_map = do_map
+
+  def _idx(self, name):
+    return self._keys.index(name)
+
+  def todict(self):
+    return {k: self[k] for k in self.arr_info}
+
+  def __call__(self, key):
+    return self[key]
+
+  def __getitem__(self, key):
+    if isinstance(key, str):
+      val = self.arr[..., self._idx(key)]
+      return mapto(val, self.arr_info[key]) if self.do_map else val
+    if isinstance(key, (list, tuple)):
+      val = np.stack([np.asarray(self.arr[..., self._idx(k)]) for k in key],
+                     axis=-1)
+      if self.do_map:
+        return mapto(val, np.array([self.arr_info[k] for k in key]).T)
+      return val
+    raise NotImplementedError(key)
+
+  def __setitem__(self, key, item):
+    if isinstance(key, str):
+      idx = self._idx(key)
+      self.arr[..., idx] = (rmapto(item, self.arr_info[key]) if self.do_map
+                            else item)
+      return
+    if isinstance(key, (list, tuple)):
+      if self.do_map:
+        bounds = np.array([self.arr_info[k] for k in key]).T
+        item = rmapto(np.asarray(item), bounds)
+      for j, k in enumerate(key):
+        self.arr[..., self._idx(k)] = np.asarray(item)[..., j]
+      return
+    raise NotImplementedError(key)
+
+
 # -- dict / list helpers -----------------------------------------------------
 
 def subdict(d, subkeys):
@@ -97,9 +150,32 @@ def sortdict(x):
   return subdict(x, sorted(x))
 
 
+def subdlist(d, subkeys):
+  return [d[k] for k in subkeys]
+
+
+def filtdict(d, phrase):
+  return {k: d[k] for k in d if re.match(phrase, k) is not None}
+
+
+def nfiltdict(d, phrase):
+  return {k: d[k] for k in d if re.match(phrase, k) is None}
+
+
 def filtlist(lst, phrase):
   return [x for x in lst if re.match(phrase, x) is not None]
 
 
 def nfiltlist(lst, phrase):
   return [x for x in lst if re.match(phrase, x) is None]
+
+
+# -- small geometry helpers --------------------------------------------------
+
+def get_angle(sin, cos):
+  return np.arctan2(sin, cos)
+
+
+def make_rot(angle):
+  c, s = np.cos(angle), np.sin(angle)
+  return np.array([[c, -s], [s, c]])

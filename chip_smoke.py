@@ -127,7 +127,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      iterations), ms an update, parameters moved; every run's logged values
      finite and no kernel but the lcd raster launched; one PPO pi and v
      update, one SAC update (cnn) and their forwards on the card against
-     the CPU (phase 12's gates).
+     the CPU (phase 12's gates);
+  16. visualisation, on phase 12's data, BVAE and FBT: research.main
+     --mode=viz --optimize_actions=1 (1 rollout of the CLI's 4: 50 truth
+     steps, a 10-iteration plan) and --mode=viz --interactive=1 (no pyglet
+     window: the headless replay), each with one lcd raster launch a truth
+     step and no other kernel, its gifs decoding to the rollout's frames
+     and the truth frames equal to the plain raster's frames of the stepped
+     states, bit for bit (ms a truth step, ms a plan iteration); AutoEnv
+     (9 primed frames, 3 lockstep steps); render('human') into an
+     ArrayViewer, its LCD half the plain frame; --mode=fiddle (s,
+     vec_weights.pkl); ipython_mode (IPython.embed stood in); the media
+     scripts demo_gifs, lcd_wave, viz_goal, sample_model and the examples
+     basic, less_basic, collect, train at the smallest depths that exercise
+     each (solver iterations 8/4), every file decoding, launches counted,
+     s each; card against CPU: optimize_actions (3 iterations, the same
+     uniforms) and the Fiddler's sensitivities within 2e-4, MiniGPT's
+     loss after one Adam step within 1e-6 relative.
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -138,6 +154,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import importlib.util
 import json
 import math
 import pickle
@@ -146,13 +163,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import boxlcd_tpu_torch
-from boxlcd_tpu_torch import _build
+from boxlcd_tpu_torch import _build, viewer
 from boxlcd_tpu_torch.data.collect import (
     fill_barrels, make_mega_rollout_fn, make_rollout_fn, pack_bits,
     write_barrel_file)
@@ -160,15 +178,22 @@ from boxlcd_tpu_torch.data.dataset import BARREL_SIZE, RolloutDataset
 from boxlcd_tpu_torch.data.device_dataset import (
     DeviceDataset, make_device_trainer)
 from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
+from boxlcd_tpu_torch.engine import spec as engine_spec
 from boxlcd_tpu_torch.engine.spec import CIRCLE
 from boxlcd_tpu_torch.envs.env import Env
+from boxlcd_tpu_torch.examples import basic as ex_basic
+from boxlcd_tpu_torch.examples import collect as ex_collect
+from boxlcd_tpu_torch.examples import less_basic as ex_less_basic
+from boxlcd_tpu_torch.examples import model as ex_model
+from boxlcd_tpu_torch.examples import train as ex_train
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
 from boxlcd_tpu_torch.research import main as research_main
 from boxlcd_tpu_torch.research import utils as research_utils
-from boxlcd_tpu_torch.research.nets._base import autocast, to_device
+from boxlcd_tpu_torch.research.nets._base import Net, autocast, to_device
 from boxlcd_tpu_torch.research.nets.autoencoders import (
     ArbiterAE, MultiStepArbiter, ObjectLocalizer)
 from boxlcd_tpu_torch.research.nets.autoencoders.bvae import BVAE
+from boxlcd_tpu_torch.research.runners import fiddler, vizer
 from boxlcd_tpu_torch.research.runners.trainer import load_arbiter
 from boxlcd_tpu_torch.research.nets.video_models._base import uniform_actions
 from boxlcd_tpu_torch.research.nets.video_models.fbt import FBT
@@ -177,7 +202,8 @@ from boxlcd_tpu_torch.research.rl.nets import gaussian_logp
 from boxlcd_tpu_torch.research.rl._base import RLAlgo
 from boxlcd_tpu_torch.research.rl.ppo import PPO, adam, pool_size
 from boxlcd_tpu_torch.research.rl.sac import SAC
-from boxlcd_tpu_torch.research.scripts import eval_policy
+from boxlcd_tpu_torch.research.scripts import (
+    demo_gifs, eval_policy, lcd_wave, sample_model, viz_goal)
 from boxlcd_tpu_torch.research.wrappers import (
     CubeGoalEnv, LearnedEnv, PreprocVecEnv, RewardLenv, VecEnv)
 from boxlcd_tpu_torch.utils import AttrDict, set_tf32
@@ -196,7 +222,7 @@ PER_STEP_BATCH, PER_STEP_T = 1000, 10       # the per-step path, cut in depth
 # share must pass 0.2, UrchinBall reads 0.30 and Urchin 0.39 at 24 steps on
 # the CPU, Luxo and LuxoCube 0.42 and 0.53 already at 22 (0.49-0.73 at 34)
 MEGA_CHECK_B, MEGA_CHECK_T = 1024, 24
-MEGA_PLAIN_T = 25             # the main shape's plain steps, of its 100
+MEGA_PLAIN_T = 10             # the main shape's plain steps, of its 100
 # tests/test_mega.py's FIELDS and BOUNDS: (median, tail threshold, tail
 # fraction, least sleep share of the plain version)
 MEGA_FIELDS = ['c', 'a', 'v', 'w', 'sleep_time', 'wc_imp', 'j_imp', 'j_mot',
@@ -2519,10 +2545,13 @@ def _rl_card_vs_cpu(ppo, sac):
   G, dev = ppo.G, ppo.device
   n = int(G.bs)
   out, losses = {}, {}
-  # PPO: the batch's old logp sits 0.05 below the policy's, so kl != 0,
-  # and its advantages at mean 1: at a buffer's normalised mean 0 the loss
-  # is a cancellation of +-1 terms, and a relative gate on it reads the
-  # cancellation, not the devices
+  # PPO: the batch's old logp sits 0.5 above the policy's, and its
+  # advantages at mean 1. A relative gate on a mean of differences reads
+  # the float32 rounding of its terms (logp ~ -10: ~1e-7) over the mean:
+  # at advantages of mean 0 the loss, and at an offset of 0.05 the kl
+  # (2.2e-6 relative in one run), were cancellations, not device
+  # differences. At +0.5 the ratio, ~0.61, stays unclipped wherever the
+  # advantage is positive (84% of rows), so the pi step keeps its gradient
   S = ppo.obs_space[G.state_key].shape[-1]
   obs = {k: rng.uniform(-1, 1, (n, S)).astype(np.float32)
          for k in (G.state_key, ppo.goal_key)}
@@ -2532,7 +2561,7 @@ def _rl_card_vs_cpu(ppo, sac):
     act = mu + std * _tree(eps, dev)
     logp = gaussian_logp(mu, std, act).cpu().numpy()
   batch = {'obs': obs, 'act': act.cpu().numpy(),
-           'logp': (logp - 0.05 + 0.1 * rng.randn(n)).astype(np.float32),
+           'logp': (logp + 0.5 + 0.1 * rng.randn(n)).astype(np.float32),
            'adv': (1 + rng.randn(n)).astype(np.float32),
            'ret': rng.randn(n).astype(np.float32)}
   twin = _cpu_twin(ppo, ['ac'])
@@ -2753,6 +2782,464 @@ def rl_phase(dev, smi, tmp):
   return out
 
 
+# phase 16, visualisation: over phase 12's BVAE and FBT (Urchin, kicker.py's
+# widths, window 50, prompt 3) through research.main's viz and fiddle modes
+VIZ_ROLLOUTS = 1            # Vizer.run's n_rollouts, of the CLI's 4
+VIZ_AUTOENV_STEPS = 3
+VIZ_CPU_ITERS = 3           # optimize_actions' card-vs-CPU iterations (the
+                            # path's 10 are timed on the card)
+# card vs CPU, float32, TF32 off: optimize_actions' losses and planned
+# actions, the Fiddler's sensitivities (where no code of the batch sits
+# within LENV_MARGIN of its threshold), within VIZ_TOL; MiniGPT's loss after
+# one Adam step within WM_LOSS_RTOL relative
+VIZ_TOL = 2e-4
+# the scripts and examples: at bench.py's 8/4 solver iterations (their
+# default 180/60 is 20x the solver launches of a plain step, each step
+# seconds on the card) and the smallest depths that exercise each;
+# lcd_wave's 12 steps reach its wipe (the LCD enters at step 11)
+VIZ_DEMO = ['--envs=Bounce', '--steps=1']
+VIZ_WAVE = ['--env=Bounce', '--steps=12']
+VIZ_GOAL = ['--env=Urchin', '--rows=1', '--cols=2', '--vel_iters=8',
+            '--pos_iters=4']
+VIZ_SAMPLE = ['--env=Urchin', '--model=FBT', '--frames=8']
+VIZ_BASIC = ['--steps=1']             # prints t = 0 (of 0, 10, ... 40)
+VIZ_LESS_BASIC = ['--env=Bounce', '--steps=2', '--headless=1']
+VIZ_COLLECT = ['--num_eps=8', '--batch=8', '--ep_len=5']
+VIZ_TRAIN_WINDOW = 5                  # train.py's widths, its window cut
+VIZ_TRAIN = ['--epochs=1', '--bs=4', f'--window={VIZ_TRAIN_WINDOW}']
+
+
+def _decodes(path):
+  """The frames of a written gif or PNG as (frames, H, W, 3) uint8, or of
+  its npz stand-in."""
+  path = str(path)
+  if path.endswith('.npz'):
+    return np.load(path)['frames']
+  from PIL import Image
+  with Image.open(path) as im:
+    frames = []
+    for i in range(getattr(im, 'n_frames', 1)):
+      im.seek(i)
+      frames.append(np.asarray(im.convert('RGB')))
+  return np.stack(frames)
+
+
+def _as_gif(frames):
+  """What a gif keeps of a sequence of frames: Pillow merges a frame equal
+  to the one before it into that one's duration."""
+  keep = [0] + [i for i in range(1, len(frames))
+                if not np.array_equal(frames[i], frames[i - 1])]
+  return frames[keep]
+
+
+class StepRecorder:
+  """Keeps the states `Env.step` returns while the context lasts: the truth
+  rollouts' states, re-rendered by the plain raster afterwards."""
+
+  def __enter__(self):
+    self.states = []
+    self.saved = Env.step
+
+    def step(env, state, action):
+      out = self.saved(env, state, action)
+      self.states.append(out[0])
+      return out
+    Env.step = step
+    return self
+
+  def __exit__(self, *exc):
+    Env.step = self.saved
+
+
+def _plain_frames(env, states):
+  """The plain raster's frames of a list of batch-of-one states."""
+  ic, c, a = (torch.cat(x) for x in zip(*[(s.is_circle, s.c, s.a)
+                                          for s in states]))
+  return raster.lcd_render_plain(env.spec, ic, c, torch.cos(a), torch.sin(a),
+                                  env.lcd_w, env.lcd_h)
+
+
+def _viz_run(label, argv, smi):
+  """research.main's viz mode over argv at VIZ_ROLLOUTS rollouts, the
+  launch counts set to 0 just before and read just after: one lcd raster
+  launch a truth step and no other kernel; the gifs decode to the
+  rollouts' frames, the truth frames equal the plain raster's frames of
+  the stepped states, bit for bit. Returns (runner, record, measures)."""
+  G, env = research_main.parse_flags(['--mode=viz', *argv])
+  _zero_launches()
+  targets = [(vizer, 'truth_rollout'), (vizer.Vizer, 'optimize_actions')]
+  with StepRecorder() as rec, Timed(targets) as t:
+    t0 = time.perf_counter()
+    runner, recs = research_main.visualize(G, env, n_rollouts=VIZ_ROLLOUTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  launches = _launches()
+  T, H = runner.model.block_size, env.lcd_h
+  steps = VIZ_ROLLOUTS * T
+  truth = np.concatenate([r['truth'] for r in recs])
+  plain = _plain_frames(env, rec.states).float().cpu().numpy()
+  truth_ms = [c['ms'] / T for c in t.calls['truth_rollout']]
+  opt = [c['ms'] / 10 for c in t.calls['optimize_actions']]
+  log(f'[viz] {label}: {type(runner).__name__}, {len(recs)} rollout(s) of '
+      f'{T} truth steps in {wall:.2f} s; {truth_ms} ms a truth step (lcd '
+      f'launches {[c["lcd"] for c in t.calls["truth_rollout"]]}); '
+      f'optimize_actions {opt} ms an iteration (10 a plan); losses '
+      f'{[(r.get("loss0"), r.get("loss1")) for r in recs]}; launches '
+      f'{launches} on {smi}')
+  if launches != _expect(lcd_raster=steps) or len(rec.states) != steps:
+    raise RuntimeError(f'{label}: launches {launches}, {len(rec.states)} '
+                       f'stepped states for {steps} truth steps')
+  if not np.array_equal(truth, plain):
+    raise RuntimeError(f'{label}: truth frames differ from the plain raster '
+                       f'in {int((truth != plain).sum())} pixels')
+  for r in recs:
+    frames = _decodes(r['gif'])[..., 0]
+    strip = np.concatenate([r['truth'], r['sample']], 1)
+    if not np.array_equal(frames, _as_gif((255 * strip).astype(np.uint8))):
+      raise RuntimeError(f'{label}: {r["gif"]} decodes to {frames.shape}, '
+                         f'not the truth over the sample')
+    if G.optimize_actions:
+      a = r['actions']
+      strip = np.concatenate([r['before'], r['after']], 1)
+      if not np.array_equal(_decodes(r['opt_gif'])[..., 0], _as_gif(
+          (255 * strip).astype(np.uint8))) or not np.isfinite(
+          [r['loss0'], r['loss1']]).all() or float(a.abs().max()) > 1 or \
+          a.shape != (1, T, env.act_size):
+        raise RuntimeError(f'{label}: the plan {r["loss0"]} -> '
+                           f'{r["loss1"]}, actions {tuple(a.shape)}')
+  return runner, recs, dict(wall_s=wall, launches=launches,
+                            truth_ms_a_step=truth_ms,
+                            optimize_ms_an_iteration=opt,
+                            losses=[(r.get('loss0'), r.get('loss1'))
+                                    for r in recs])
+
+
+def _twin(model, cpu_env):
+  """The CPU copy of a BVAE or an FBT (with its BVAE): the same state
+  dicts."""
+  G = AttrDict(model.G, device='cpu')
+  if model.name == 'BVAE':
+    twin = BVAE(cpu_env, G)
+  else:
+    twin = FBT(cpu_env, G, bvae=_twin(model.bvae, cpu_env))
+  twin.module.load_state_dict(model.module.state_dict())
+  return twin
+
+
+def _opt_card_vs_cpu(fbt, data):
+  """optimize_actions for VIZ_CPU_ITERS iterations on the card and on the
+  CPU, from one test episode's prompts and actions toward its last frame,
+  with the same sampler uniforms: the losses and the planned actions."""
+  cpu = _twin(fbt, _env(MAIN_ENV, 'cpu'))
+  batch = next(RolloutDataset(data / 'test', window=fbt.block_size)
+               .batches(1))
+  g = torch.Generator().manual_seed(3)
+  u = [torch.rand((fbt.block_size, 1, fbt.z_size), generator=g)
+       for _ in range(VIZ_CPU_ITERS)]
+  out = {}
+  for name, m in (('card', fbt), ('cpu', cpu)):
+    dev = m.device
+    prompts = {k: torch.as_tensor(batch[k], device=dev)
+               for k in ('lcd', 'proprio')}
+    out[name] = vizer.Vizer(m, m.env, m.G).optimize_actions(
+        None, batch['action'], prompts, batch['lcd'][0, -1],
+        iters=VIZ_CPU_ITERS, u=[x.to(dev) for x in u])
+  (ca, c0, c1), (pa, p0, p1) = out['card'], out['cpu']
+  return dict(loss_err=max(abs(c0 - p0), abs(c1 - p1)),
+              actions_err=float((ca.cpu() - pa).abs().max()),
+              losses=(c0, c1), moved=float((pa - torch.as_tensor(
+                  batch['action'])).abs().max()))
+
+
+def _fiddle_card_vs_cpu(bvae, G, tmp):
+  """The Fiddler on the card and on the CPU over one test batch and the
+  same normals: sensitivities within VIZ_TOL wherever no code of the
+  batch's encodes (base or perturbed) sits within LENV_MARGIN of its
+  threshold on the CPU, and no code apart beyond that margin."""
+  cpu = _twin(bvae, _env(MAIN_ENV, 'cpu'))
+  batch = next(RolloutDataset(Path(G.datadir) / 'test', window=G.window)
+               .batches(G.bs))
+  flat = {k: torch.as_tensor(v.reshape(-1, *v.shape[2:]))
+          for k, v in batch.items() if k != 'action'}
+  N, P = flat['proprio'].shape
+  noise = torch.randn((P, N), generator=torch.Generator().manual_seed(5))
+  saved = fiddler.load_ds
+  fiddler.load_ds = lambda G: (None, [batch])
+  sens, apart, near = {}, 0, torch.zeros((P, bvae.z_size), dtype=torch.bool)
+  try:
+    for name, m in (('card', bvae), ('cpu', cpu)):
+      fG = AttrDict(G, logdir=str(tmp / f'fiddle_{name}'))
+      fiddler.Fiddler(m, m.env, fG).run(noise=noise)
+      with open(tmp / f'fiddle_{name}' / 'vec_weights.pkl', 'rb') as f:
+        sens[name] = pickle.load(f)['sensitivity']
+  finally:
+    fiddler.load_ds = saved
+  with torch.no_grad():
+    for d in [None, *range(P)]:
+      pert = dict(flat)
+      if d is not None:
+        pert['proprio'] = flat['proprio'].clone()
+        pert['proprio'][:, d] += 0.2 * noise[d]
+      p = torch.sigmoid(cpu.module.enc(pert['lcd'], pert['proprio'])
+                        ).reshape(N, -1)
+      edge = ((p - 0.5).abs() <= LENV_MARGIN)
+      codes = {name: m.encode({k: v.to(m.device) for k, v in pert.items()},
+                              noise=False).cpu() > 0.5
+               for name, m in (('card', bvae), ('cpu', cpu))}
+      apart += int(((codes['card'] != codes['cpu']) & ~edge).sum())
+      if d is None:
+        near |= edge.any(0)[None]
+      else:
+        near[d] |= edge.any(0)
+  diff = np.abs(sens['card'] - sens['cpu'])
+  return dict(sens_err=float(diff[~near.numpy()].max(initial=0.0)),
+              sens_err_all=float(diff.max()), codes_apart_beyond=apart,
+              cells_near_threshold=int(near.sum()), cells=int(near.numel()))
+
+
+def _minigpt_card_vs_cpu(npz, dev):
+  """MiniGPT at train.py's widths on the card and on the CPU (the same
+  init), one Adam step on the same batch of the collected episodes: the
+  losses before and after within WM_LOSS_RTOL relative."""
+  data = np.load(npz)
+  W = VIZ_TRAIN_WINDOW
+  batch = {'lcd': data['lcd'][:4, :W].astype(np.float32),
+           'action': data['action'][:4, :W]}
+  G = AttrDict(n_embed=128, n_head=4, n_layer=2, window=W, lr=5e-4)
+  out = {}
+  for name, d in (('card', dev), ('cpu', 'cpu')):
+    m = ex_model.Model(_env('Bounce', d), G)
+    first = m.train_step(batch)['loss']
+    with torch.no_grad():
+      after = float(m.loss_fn({k: torch.as_tensor(v, device=m.device)
+                               for k, v in batch.items()})[0])
+    out[name] = (first, after)
+  rel = max(abs(a - b) / abs(b) for a, b in zip(out['card'], out['cpu']))
+  return dict(loss_rel_err=rel, losses=out)
+
+
+def _timed_call(label, fn, argv, smi, lcd):
+  """fn(argv) with the launch counts set to 0 just before and read just
+  after: `lcd` lcd raster launches and no other kernel. Returns (result,
+  s, launches)."""
+  _zero_launches()
+  t0 = time.perf_counter()
+  out = fn(argv)
+  torch.cuda.synchronize()
+  s = time.perf_counter() - t0
+  launches = _launches()
+  log(f'[viz] {label} {" ".join(argv)}: {s:.2f} s; launches {launches} on '
+      f'{smi}')
+  if launches != _expect(lcd_raster=lcd):
+    raise RuntimeError(f'{label}: launches {launches}, not {lcd} lcd')
+  return out, s, launches
+
+
+def _scripts_and_examples(dev, smi, tmp):
+  """The four media scripts and the five examples at the smallest depths
+  that exercise each, solver iterations 8/4; every file decodes."""
+  out = {}
+  saved = engine_spec.DEFAULT_ITERS
+  engine_spec.DEFAULT_ITERS = (ITERS['vel_iters'], ITERS['pos_iters'])
+  try:
+    paths, s, _ = _timed_call('demo_gifs', demo_gifs.main,
+                              [*VIZ_DEMO, f'--outdir={tmp / "demos"}'], smi,
+                              lcd=1)
+    frames = _decodes(paths['Bounce'])
+    if frames.shape != (1, 128, 128, 3):
+      raise RuntimeError(f'demo_gifs: {frames.shape}')
+    out['demo_gifs_s'] = s
+    path, s, _ = _timed_call('lcd_wave', lcd_wave.main,
+                             [*VIZ_WAVE, f'--outdir={tmp / "figs"}'], smi,
+                             lcd=13)           # 12 steps + the batched render
+    frames = _decodes(path)
+    if not 1 <= len(frames) <= 12 or frames.shape[1:] != (256, 258, 3) or \
+        not frames.std() > 0:
+      raise RuntimeError(f'lcd_wave: {frames.shape}')
+    out['lcd_wave_s'] = s
+    path, s, _ = _timed_call('viz_goal', viz_goal.main,
+                             [*VIZ_GOAL, f'--outdir={tmp / "figs"}'], smi,
+                             lcd=4)            # 2 resets of goal + state
+    img = _decodes(path)[0].astype(int)
+    if img.shape != (128, 520, 3) or not (img[..., 0] > img[..., 1] + 64
+                                          ).any():
+      raise RuntimeError(f'viz_goal: {img.shape}, no red goal')
+    out['viz_goal_s'] = s
+    (path, truth, pred), s, _ = _timed_call(
+        'sample_model', sample_model.main,
+        [*VIZ_SAMPLE, f'--weightdir={tmp / "fbt"}',
+         f'--outdir={tmp / "figs"}'], smi,
+        lcd=int(Net.load_config(tmp / "fbt", "FBT").window))
+    img = _decodes(path)[0]
+    H, W = truth.shape[1:]
+    if img.shape != ((3 * H + 2) * 8, (8 * W + 7) * 8, 3) or not \
+        np.array_equal(img, (255 * sample_model.frame_strip(
+            truth, pred, 1, 8)).astype(np.uint8)):
+      raise RuntimeError(f'sample_model: {img.shape}')
+    out['sample_model_s'] = s
+    printed, s, _ = _timed_call('examples.basic', ex_basic.main,
+                                VIZ_BASIC, smi, lcd=2)
+    if sorted(printed) != [0] or printed[0].all() or not printed[0].any():
+      raise RuntimeError(f'basic printed {sorted(printed)}')
+    out['basic_s'] = s
+    path, s, _ = _timed_call('examples.less_basic', ex_less_basic.main,
+                             [*VIZ_LESS_BASIC, f'--out={tmp / "lb.gif"}'],
+                             smi, lcd=3)
+    frames = _decodes(path)
+    if not 1 <= len(frames) <= 2 or frames.shape[1:] != (128, 128, 3):
+      raise RuntimeError(f'less_basic: {frames.shape}')
+    out['less_basic_s'] = s
+    npz = tmp / 'rollouts.npz'
+    traj, s, _ = _timed_call('examples.collect', ex_collect.main,
+                             [*VIZ_COLLECT, f'--out={npz}'], smi, lcd=5)
+    if traj['lcd'].shape != (8, 5, 16, 16):
+      raise RuntimeError(f'collect: lcd {traj["lcd"].shape}')
+    out['collect_s'] = s
+    (model, bpd, samp), s, _ = _timed_call(
+        'examples.train', ex_train.main, [*VIZ_TRAIN, f'--data={npz}'], smi,
+        lcd=0)
+    if not np.isfinite(bpd).all() or \
+        tuple(samp.shape) != (4, VIZ_TRAIN_WINDOW, 256):
+      raise RuntimeError(f'train: bits/dim {bpd}, sample {samp.shape}')
+    out['train_s'] = s
+    out['train_bits_per_dim'] = bpd
+    out['minigpt_card_vs_cpu'] = _minigpt_card_vs_cpu(npz, dev)
+  finally:
+    engine_spec.DEFAULT_ITERS = saved
+  return out
+
+
+def viz_phase(dev, smi, tmp):
+  """The visualisation chain on the card over phase 12's BVAE and FBT
+  (`tmp`/bvae, `tmp`/fbt, `tmp`/data): --mode=viz with optimize_actions,
+  --mode=viz --interactive=1 (the headless fallback), --mode=fiddle,
+  ipython_mode, AutoEnv, render('human'), the media scripts and the
+  examples; then card against CPU."""
+  set_tf32(False)
+  out = {}
+  common = [f'--weightdir={tmp / "fbt"}', '--model=FBT', *WM_COMMON]
+  runner, recs, out['viz'] = _viz_run(
+      'research.main --mode=viz --optimize_actions=1',
+      [*common, f'--logdir={tmp / "viz"}', '--optimize_actions=1'], smi)
+  irunner, _, out['viz_interactive'] = _viz_run(
+      'research.main --mode=viz --interactive=1',
+      [*common, f'--logdir={tmp / "viz_i"}', '--interactive=1'], smi)
+  if irunner.have_window:
+    raise RuntimeError('a pyglet window opened on the card host')
+  log('[viz] --interactive=1: no pyglet window here, the headless replay '
+      'ran (pyglet '
+      f'{"installed" if viewer.HAVE_PYGLET else "not installed"})')
+
+  # AutoEnv: prime 9 real frames, then VIZ_AUTOENV_STEPS lockstep steps;
+  # its G is the model's (the window AutoEnv slides is G.window: the CLI's
+  # G holds the default 200 where the weightdir has no hps.yaml, as a
+  # device-dataset run leaves it)
+  model, env, G = runner.model, runner.env, runner.model.G
+  np.random.seed(0)
+  _zero_launches()
+  ae = vizer.AutoEnv(model, env, G)
+  t0 = time.perf_counter()
+  truth, pred, goal = ae.reset()
+  count0 = ae.count
+  torch.cuda.synchronize()
+  reset_s = time.perf_counter() - t0
+  step_ms = []
+  for _ in range(VIZ_AUTOENV_STEPS):
+    t0 = time.perf_counter()
+    truth, pred, rew, lrew, goal = ae.step(env.action_space.sample())
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+  launches = _launches()
+  primed = min(9, G.window - 2)
+  log(f'[viz] AutoEnv: primed {primed} real frames in {reset_s:.2f} s, '
+      f'{VIZ_AUTOENV_STEPS} lockstep steps {step_ms} ms (a truth step and '
+      f'an FBT onestep over the {G.window}-frame window); pointer {count0} '
+      f'-> {ae.count}; launches {launches} on {smi}')
+  want = (env.lcd_h * 8, env.lcd_w * 8, 3)
+  if launches != _expect(lcd_raster=1 + primed + VIZ_AUTOENV_STEPS) or \
+      truth.shape != want or pred.shape != want or \
+      ae.count != min(count0 + VIZ_AUTOENV_STEPS, G.window - 2) or \
+      not np.isfinite(ae.window_batch['proprio']).all():
+    raise RuntimeError(f'AutoEnv: launches {launches}, frames {truth.shape}'
+                       f' {pred.shape}, pointer {ae.count}')
+  out['autoenv'] = dict(reset_s=reset_s, step_ms=step_ms, launches=launches)
+
+  # render('human') on the AutoEnv's state, into the ArrayViewer
+  _zero_launches()
+  img = env.render('human')
+  st = env.state
+  lcd = raster.lcd_render_plain(env.spec, st.is_circle, st.c,
+                                torch.cos(st.a), torch.sin(st.a), env.lcd_w,
+                                env.lcd_h)[0].cpu().numpy()
+  W8 = env.lcd_w * 8
+  if img.shape != (env.lcd_h * 8, 2 * W8 + 1, 3) or not np.array_equal(
+      img[:, W8 + 1:, 0], (255 * lcd.astype(np.uint8)).repeat(8, 0)
+      .repeat(8, 1)) or not isinstance(env.viewer, viewer.ArrayViewer) or \
+      _launches() != _expect(lcd_raster=1):
+    raise RuntimeError(f'render(human): {img.shape}, {type(env.viewer)}, '
+                       f'{_launches()}')
+  log(f"[viz] render('human'): {img.shape} into an ArrayViewer, its LCD "
+      f'half the plain raster\'s frame upscaled, bit for bit')
+
+  # --mode=fiddle over phase 12's BVAE
+  fG, fenv = research_main.parse_flags([
+      '--mode=fiddle', '--model=BVAE', f'--weightdir={tmp / "bvae"}',
+      f'--datadir={tmp / "data"}', f'--logdir={tmp / "fiddle"}',
+      *WM_COMMON])
+  _zero_launches()
+  t0 = time.perf_counter()
+  weights = research_main.fiddle(fG, fenv)
+  torch.cuda.synchronize()
+  fiddle_s = time.perf_counter() - t0
+  with open(tmp / 'fiddle' / 'vec_weights.pkl', 'rb') as f:
+    saved = pickle.load(f)
+  sens = saved['sensitivity']
+  log(f'[viz] research.main --mode=fiddle: {fiddle_s:.2f} s ({fG.bs} x '
+      f'{fG.window} frames, {sens.shape[0]} proprio dims x {sens.shape[1]} '
+      f'codes); launches {_launches()} on {smi}')
+  if sens.shape != weights.shape or not np.isfinite(sens).all() or \
+      not sens.any() or _launches() != _expect():
+    raise RuntimeError(f'fiddle: {sens.shape}, {_launches()}')
+  out['fiddle'] = dict(s=fiddle_s, shape=sens.shape)
+
+  # ipython_mode, IPython.embed stood in (a smoke opens no REPL)
+  have_ipython = importlib.util.find_spec('IPython') is not None
+  seen = {}
+  stub = types.ModuleType('IPython')
+  stub.embed = lambda **kw: seen.update(sys._getframe(1).f_locals)
+  saved_mod = sys.modules.get('IPython')
+  sys.modules['IPython'] = stub
+  try:
+    research_main.main(['--ipython_mode=1', *common])
+  finally:
+    if saved_mod is None:
+      sys.modules.pop('IPython')
+    else:
+      sys.modules['IPython'] = saved_mod
+  m = seen.get('model')
+  if m is None or m.device.type != dev.type or 'env' not in seen:
+    raise RuntimeError(f'ipython_mode: {sorted(seen)}')
+  installed = 'installed' if have_ipython else 'not installed'
+  log(f'[viz] ipython_mode: env, G and the FBT (on {m.device}) in the '
+      f"REPL's scope; IPython {installed} on this host, embed stood in")
+
+  out['scripts'] = _scripts_and_examples(dev, smi, tmp)
+
+  # card against CPU
+  out['optimize_card_vs_cpu'] = o = _opt_card_vs_cpu(model, tmp / 'data')
+  out['fiddle_card_vs_cpu'] = f = _fiddle_card_vs_cpu(model.bvae, fG, tmp)
+  mg = out['scripts']['minigpt_card_vs_cpu']
+  log(f'[viz] card vs CPU (float32, TF32 off): optimize_actions '
+      f'({VIZ_CPU_ITERS} iterations) {o}; Fiddler {f}; MiniGPT one Adam '
+      f'step {mg}; gates {VIZ_TOL}, {VIZ_TOL}, {WM_LOSS_RTOL} rel')
+  if not (o['loss_err'] <= VIZ_TOL and o['actions_err'] <= VIZ_TOL and
+          o['moved'] > 0 and f['sens_err'] <= VIZ_TOL and
+          not f['codes_apart_beyond'] and
+          mg['loss_rel_err'] <= WM_LOSS_RTOL):
+    raise RuntimeError(f'viz card vs CPU: {o} {f} {mg}')
+  return out
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument('--out', default=None, help='also write the results here')
@@ -2790,6 +3277,7 @@ def main():
     lenv = run('learned-env', learned_env_phase, dev, smi, Path(tmp), bvae,
                fbt, models['FRNLD'])
     rl = run('rl', rl_phase, dev, smi, Path(tmp))
+    viz = run('viz', viz_phase, dev, smi, Path(tmp))
   lt, tt, mt = kern['times'][TRIPWIRE_FRAMES], traj['times'], meg['times']
   launches = main_run['launches']
   sk = sol_path['kernels']
@@ -2830,10 +3318,11 @@ def main():
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(dict(
         card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s=build, ptxas=ptxas, phase_s=phase_s, kernel=kern, traj=traj, mega=meg,
+        build_s=build, ptxas=ptxas, phase_s=phase_s, kernel=kern, traj=traj,
+        mega=meg,
         reference=ref, solver=sol, main=main_run, per_step=step_run,
         solver_path=sol_path, vec_env=vec, world_model=wm, evaluation=ev,
-        video_models=vm, learned_env=lenv, rl=rl, kernels=kernels,
+        video_models=vm, learned_env=lenv, rl=rl, viz=viz, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)

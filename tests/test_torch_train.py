@@ -228,7 +228,9 @@ def test_main_collect_bvae_fbt(tmp_path):
            f'--logdir={fdir}', f'--weightdir={bdir}', '--total_itr=2',
            '--window=6', f'--device_dataset={dd}', *TINY])
     assert _step_of(fdir / 'FBT.pkl') == 2
-  # --mode=eval runs since the Evaler's port (tests/test_torch_eval.py);
-  # viz is not ported and raises
-  with pytest.raises(NotImplementedError):
-    tmain(['--mode=viz', *TINY])
+  # --mode=eval runs since the Evaler's port (tests/test_torch_eval.py),
+  # --mode=viz since the Vizer's (tests/test_torch_viz_main.py): over the
+  # device-dataset FBT, one gif a rollout
+  tmain(['--mode=viz', '--model=FBT', f'--weightdir={tmp_path / "fbt1"}',
+         f'--logdir={tmp_path / "viz"}', *TINY])
+  assert len(list((tmp_path / 'viz').glob('viz_rollout_*.gif'))) == 4
