@@ -8,7 +8,9 @@ The port of boxlcd_tpu/data/collect.py, both configurations:
 - the per-step path (`make_rollout_fn`, `collect_mega=0` and the CPU):
   reset and step run over a leading worlds axis, a Python loop runs over
   time, and every step renders its exact LCD frames through the per-frame
-  raster kernel (render/cuda_raster.py).
+  raster kernel (render/cuda_raster.py);
+- under `--mesh=dpN`, the per-step path with the worlds axis sharded over N
+  devices (`make_sharded_rollout_fn`), as boxlcd_tpu shards it.
 Whole [B, T, ...] episode tensors stay on the device until the host writes
 the finished barrels.
 
@@ -29,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from boxlcd_tpu_torch import parallel
 from boxlcd_tpu_torch.data import native
 from boxlcd_tpu_torch.data.dataset import BARREL_SIZE, barrel_files
 from boxlcd_tpu_torch.engine import mega, physics
@@ -165,6 +168,27 @@ def make_mega_rollout_fn(env, pack_lcd=False):
   return batch_rollout, T
 
 
+def make_sharded_rollout_fn(env, mesh, pack_lcd=False):
+  """The per-step path over a `parallel.Mesh` (boxlcd_tpu's collect.py:
+  248-260): (gen, batch) -> dict of [B, T, ...] episode tensors on the
+  master, and T. The resets and actions are drawn once, at the global
+  batch's shape, exactly as make_rollout_fn draws them; the worlds axis is
+  then sharded, each device rolls its slice out on its own copy of the env
+  with no cross-device traffic, and the episodes are gathered. The batch
+  must divide over the devices."""
+  fns = [make_rollout_fn(e, pack_lcd=pack_lcd)[0] for e in mesh.envs(env)]
+  T = int(env.G.ep_len)
+
+  def batch_rollout(gen, batch_size):
+    mesh.check_divides(batch_size, 'collect batch')
+    states = Env.reset(env, gen, batch_size)
+    actions = _random_actions(env, gen, batch_size, T)
+    return mesh.gather([fn.core(s, a) for fn, s, a in zip(
+        fns, mesh.shard(states), mesh.shard(actions))])
+
+  return batch_rollout, T
+
+
 def rollout_batch(env, gen, batch_size, policy_fn=None):
   """Convenience: one batch of episodes as numpy arrays."""
   fn, _ = make_rollout_fn(env, policy_fn)
@@ -213,10 +237,11 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
   (make_mega_rollout_fn) when mega.supports(spec) and G.collect_mega
   (default 1); the per-step path (make_rollout_fn) on the CPU or with
   collect_mega=0. The megakernel path's render tripwire raises before any
-  barrel is written. G.barrel_format is 'npz' (default) or 'native'. Mesh
-  sharding (`mesh`) is not ported and raises."""
-  if str(G.get('mesh', '') or ''):
-    raise ValueError('mesh-sharded collection is not ported yet')
+  barrel is written. G.barrel_format is 'npz' (default) or 'native'. A mesh
+  (`G.mesh`, 'dpN') selects the per-step path, as in boxlcd_tpu, with the
+  worlds sharded over N devices (`make_sharded_rollout_fn`); the batch must
+  divide over them."""
+  mesh = parallel.parse_mesh(G.get('mesh', ''), env.device)
   barrel_format = G.get('barrel_format', 'npz')
   if barrel_format not in ('npz', 'native'):
     raise ValueError(f'unknown barrel format {barrel_format!r}')
@@ -245,10 +270,14 @@ def fill_barrels(env, num_barrels, prefix, G, gen, batch_size=None):
                        f'{BARREL_SIZE}')
     per_dispatch, reps = 1, BARREL_SIZE // batch_size
   use_mega = False
-  if env.device.type == 'cuda':
+  if mesh is not None:
+    mesh.check_divides(batch_size, 'collect batch')
+  elif env.device.type == 'cuda':
     use_mega = mega.supports(env.spec) and bool(int(G.get('collect_mega', 1)))
   if use_mega:
     fn, T = make_mega_rollout_fn(env, pack_lcd=True)
+  elif mesh is not None:
+    fn, T = make_sharded_rollout_fn(env, mesh, pack_lcd=True)
   else:
     fn, T = make_rollout_fn(env, pack_lcd=True)
 

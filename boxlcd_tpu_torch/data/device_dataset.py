@@ -4,7 +4,10 @@ and training samples (episode, window) batches on the device.
 The port of boxlcd_tpu/data/device_dataset.py: the host uploads the episodes
 once (frames bit-packed, 1 bit a pixel), and every training step's batch is
 a gather on the device, so a step moves no data over the host link. The JAX
-package's K-step `lax.scan` dispatch is a Python loop of K steps here.
+package's K-step `lax.scan` dispatch is a Python loop of K steps here;
+under `--mesh=dpN` each step's batch, sampled on the master, is sharded on
+its batch axis by `Net.update` (JAX shards the (K, B, ...) chunk on axis
+1: the same rows to the same devices).
 """
 from __future__ import annotations
 

@@ -176,9 +176,10 @@ class _Solver:
       arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
       spec = self.spec
       geo = mega.launch_geometry(spec, B, threads)
-      err = fn(ctypes.cast(arr, ctypes.c_void_p), B, geo.group, geo.worlds,
-               len(spec.pair_a), len(spec.j_parent), geo.shared,
-               torch.cuda.current_stream(dev).cuda_stream)
+      with torch.cuda.device(dev):   # launch on the tensors' card
+        err = fn(ctypes.cast(arr, ctypes.c_void_p), B, geo.group,
+                 geo.worlds, len(spec.pair_a), len(spec.j_parent),
+                 geo.shared, torch.cuda.current_stream(dev).cuda_stream)
       if err != 0:
         raise RuntimeError(f'batched_solver ({kind}) launch failed: '
                            f'cudaError {err}')

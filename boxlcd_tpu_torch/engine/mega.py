@@ -321,9 +321,10 @@ class Rollout:
             motor_speed, stream]
     arr = (ctypes.c_void_p * len(ptrs))(*(t.data_ptr() for t in ptrs))
     geo = launch_geometry(spec, B, threads)
-    err = fn(ctypes.cast(arr, ctypes.c_void_p), B, self.T, geo.group,
-             geo.worlds, len(spec.pair_a), len(spec.j_parent), geo.shared,
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):     # launch on the tensors' card
+      err = fn(ctypes.cast(arr, ctypes.c_void_p), B, self.T, geo.group,
+               geo.worlds, len(spec.pair_a), len(spec.j_parent), geo.shared,
+               torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
       raise RuntimeError(f'mega_rollout launch failed: cudaError {err}')
     LAUNCHES += 1

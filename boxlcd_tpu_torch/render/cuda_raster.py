@@ -192,10 +192,11 @@ class BatchedRender:
       return out
     geo = launch_geometry(spec, B, self.height)
     stream = torch.cuda.current_stream(c.device).cuda_stream
-    err = _lib()(is_circle.data_ptr(), c.data_ptr(), cosa.data_ptr(),
-                 sina.data_ptr(), *K.pointers(c.device), B, N, K.verts,
-                 self.height, self.width, K.dmax, K.scale, geo.nv, geo.lanes,
-                 geo.threads, geo.shared, out.data_ptr(), stream)
+    with torch.cuda.device(c.device):   # launch on the tensors' card
+      err = _lib()(is_circle.data_ptr(), c.data_ptr(), cosa.data_ptr(),
+                   sina.data_ptr(), *K.pointers(c.device), B, N, K.verts,
+                   self.height, self.width, K.dmax, K.scale, geo.nv,
+                   geo.lanes, geo.threads, geo.shared, out.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f'lcd_raster launch failed: cudaError {err}')
     LAUNCHES += 1

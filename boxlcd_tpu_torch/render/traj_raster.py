@@ -101,10 +101,12 @@ class TrajRender:
       return out
     geo = cuda_raster.launch_geometry(spec, T * B, self.height)
     stream = torch.cuda.current_stream(poses.device).cuda_stream
-    err = _lib()(poses.data_ptr(), cosa.data_ptr(), sina.data_ptr(),
-                 is_circle.data_ptr(), *K.pointers(poses.device), T, B, N,
-                 K.verts, self.height, self.width, K.dmax, K.scale, geo.nv,
-                 geo.lanes, geo.threads, geo.shared, out.data_ptr(), stream)
+    with torch.cuda.device(poses.device):   # launch on the tensors' card
+      err = _lib()(poses.data_ptr(), cosa.data_ptr(), sina.data_ptr(),
+                   is_circle.data_ptr(), *K.pointers(poses.device), T, B, N,
+                   K.verts, self.height, self.width, K.dmax, K.scale,
+                   geo.nv, geo.lanes, geo.threads, geo.shared,
+                   out.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f'traj_raster launch failed: cudaError {err}')
     LAUNCHES += 1

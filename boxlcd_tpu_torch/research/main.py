@@ -15,7 +15,8 @@ research/main.py).
 Keeps the reference's config-resume chain: flags -> datadir/hps.yaml
 inheritance -> weightdir/hps.yaml inheritance -> derived lcd dims
 (reference: main.py:31-55). Runs on the card unless --device=cpu, with
-TF32 off.
+TF32 off. `--mesh=dpN` shards collection's worlds and training's batches
+over N cards (N logical CPU shards with --device=cpu; `parallel.py`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from pathlib import Path
 
 import yaml
 
+from boxlcd_tpu_torch.parallel import parse_mesh
 from boxlcd_tpu_torch.research.define_config import config, env_fn
 from boxlcd_tpu_torch.utils import AttrDict, args_type, set_tf32
 
@@ -59,6 +61,9 @@ def parse_flags(argv=None):
   G = AttrDict(vars(parser.parse_args(argv)))
   for p in ['logdir', 'datadir', 'weightdir', 'arbiterdir', 'buffdir']:
     G[p] = Path(G[p])
+  # --mesh=dpN: JAX's checks before any env is built (collect and train
+  # shard over it; it never falls back to fewer devices)
+  parse_mesh(G.mesh, G.device)
   # derived dims
   env = env_fn(G)()
   G.lcd_h = env.lcd_h

@@ -12,17 +12,29 @@ point sets them (`research.main` turns TF32 off with `utils.set_tf32`, so
 float32 runs as float32 on the card too). bfloat16 is asked for explicitly
 (`update(..., precision='bfloat16')`, the device-dataset trainer's
 default), as an autocast around the forward and the loss.
+
+`--mesh=dpN` (JAX: _base.py:76-104) shards each step's batch on its
+first axis over per-device replicas of the module (`parallel.Mesh`): each
+shard's loss, weighted by its share of the batch, runs backward on its
+replica, the gradients are summed onto the master's, clipped there by
+their global norm, and one Adam step on the master moves the weights,
+which are copied to the replicas before the next sharded forward. The
+loss's draws are made at the global batch's shape and sliced per shard,
+so dpN computes dp1's numbers.
+Metrics are the share-weighted sums of the shards' means; a metric that is
+not such a mean comes from `gathered_metrics` over the whole batch.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import pickle
 from pathlib import Path
 
 import torch
 
-from boxlcd_tpu_torch import utils
+from boxlcd_tpu_torch import parallel, utils
 
 
 def global_norm(tensors):
@@ -88,11 +100,67 @@ class Net:
     # optax.adam: b1 0.9, b2 0.999, eps 1e-8 outside the root (eps_root 0)
     self.opt = torch.optim.Adam(self.params, lr=float(self.G.lr),
                                 betas=(0.9, 0.999), eps=1e-8)
+    # --mesh=dpN: the batch on 'dp'; replica 0 is this model itself
+    self.mesh = parallel.parse_mesh(self.G.get('mesh', ''), self.device)
+    self._replicas = None if self.mesh is None else \
+        [self] + [self.replica(d) for d in self.mesh.devices[1:]]
+
+  def replica(self, device):
+    """A shallow copy of this model computing on its own copy of the
+    module on `device`, with the frozen sub-models, the env and the tensor
+    attributes moved there where they live elsewhere: one shard of a
+    `--mesh` step."""
+    device = torch.device(device)
+    rep = copy.copy(self)
+    rep.device = device
+    rep.module = copy.deepcopy(self.module).to(device)
+    rep.params = [p for p in rep.module.parameters() if p.requires_grad]
+    for k, v in vars(self).items():
+      if isinstance(v, Net) and v.device != device:
+        setattr(rep, k, v.replica(device))
+      elif isinstance(v, torch.Tensor):
+        setattr(rep, k, v.to(device))
+    rep.env = parallel.env_on(self.env, device)
+    return rep
+
+  def gathered_metrics(self, batch):
+    """Metrics that are not a mean over equal shards of the batch,
+    computed on the master over the whole batch (only under --mesh;
+    unsharded, the loss's own metrics hold them)."""
+    return {}
+
+  def _sharded_loss(self, batch, gen, precision, backward):
+    """The loss over the mesh: shard i's loss and metrics on replica i,
+    weighted by its share of the batch (backward into the replica's
+    gradients with `backward`); returns the summed metrics on the
+    master."""
+    mesh = self.mesh
+    # the master's weights (stepped, loaded or set by hand) to the replicas
+    parallel.Mesh.refresh([r.module for r in self._replicas])
+    draws = parallel.ShardDraws(gen, mesh.n)
+    shards = mesh.shard(batch)
+    total = next(iter(batch.values())).shape[0]
+    metrics = {}
+    for i, (rep, b) in enumerate(zip(self._replicas, shards)):
+      w = next(iter(b.values())).shape[0] / total
+      with autocast(rep.device, precision):
+        loss, m = rep.loss_fn(b, draws.shard(i))
+      if backward:
+        (loss * w).backward()
+      for k, v in m.items():
+        v = v.detach().to(mesh.master) * w
+        metrics[k] = v if k not in metrics else metrics[k] + v
+    with torch.no_grad():
+      metrics.update(self.gathered_metrics(batch))
+    return metrics
 
   def update(self, batch, gen, precision='float32'):
     """One clipped Adam step on `batch` (tensors on the device); returns
     the loss's metrics (detached tensors) with 'grad_norm', the norm before
-    clipping."""
+    clipping. Under --mesh the batch is sharded (see the module's
+    docstring)."""
+    if self.mesh is not None:
+      return self._update_sharded(batch, gen, precision)
     self.opt.zero_grad(set_to_none=False)
     with autocast(self.device, precision):
       loss, metrics = self.loss_fn(batch, gen)
@@ -104,12 +172,30 @@ class Net:
     metrics['grad_norm'] = gnorm
     return metrics
 
+  def _update_sharded(self, batch, gen, precision):
+    reps = self._replicas
+    for rep in reps:
+      rep.module.zero_grad(set_to_none=False)
+    metrics = self._sharded_loss(batch, gen, precision, backward=True)
+    # the replicas' gradients summed onto the master's, in shard order
+    for rep in reps[1:]:
+      for p, q in zip(self.params, rep.params):
+        p.grad.add_(q.grad.to(p.device))
+    gnorm = clip_by_global_norm_([p.grad for p in self.params],
+                                 self.grad_clip)
+    self.opt.step()
+    metrics['grad_norm'] = gnorm
+    return metrics
+
   def train_step(self, batch, dry=False):
     """One optimization step (reference: nets/_base.py:18-24); dry runs the
-    loss only."""
+    loss only (sharded too, under --mesh)."""
     batch = to_device(batch, self.device)
     if dry:
       with torch.no_grad():
+        if self.mesh is not None:
+          return self._sharded_loss(batch, self.gen, 'float32',
+                                    backward=False)
         _, metrics = self.loss_fn(batch, self.gen)
       return metrics
     metrics = self.update(batch, self.gen)

@@ -56,6 +56,13 @@ class VQVAE(SingleStepAE):
                   'loss/recon_proprio': recon_proprio,
                   'perplexity': perplexity}
 
+  def gathered_metrics(self, batch):
+    """The codebook's perplexity is not a mean over shards: under --mesh
+    it is taken over the whole batch's codes."""
+    flat = self.prep(batch)
+    z = self.module.encoder(flat['lcd'], flat['proprio'])
+    return {'perplexity': self.module.vq(z)[2]}
+
   def encode(self, batch, noise=False, gen=None, flatten=True):
     z = self.module.enc(batch['lcd'], batch['proprio'])
     if flatten:

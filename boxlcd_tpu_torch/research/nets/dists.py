@@ -1,7 +1,8 @@
 """Minimal distribution toolkit in torch (the port of research/nets/dists.py).
 
 Small stateless classes with the same stable log-prob forms as the JAX
-package. Sampling takes an explicit `torch.Generator`; where a test must
+package. Sampling takes an explicit `torch.Generator` (or a shard's, from
+`parallel.ShardDraws`, under `--mesh`); where a test must
 feed both packages the same noise, `sample` also takes the uniforms (or
 normals) themselves.
 """
@@ -12,9 +13,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from boxlcd_tpu_torch import parallel
+
 
 def _uniform(shape, gen, device):
-  return torch.rand(shape, generator=gen, device=device)
+  return parallel.rand(shape, gen, device)
 
 
 class Bernoulli:
@@ -68,8 +71,7 @@ class Normal:
 
   def sample(self, gen=None, eps=None):
     if eps is None:
-      eps = torch.randn(self.mean.shape, generator=gen,
-                        device=self.mean.device)
+      eps = parallel.randn(self.mean.shape, gen, self.mean.device)
     return self.mean + self.std * eps
 
   def kl(self, other):

@@ -10,6 +10,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from boxlcd_tpu_torch import parallel
+
 
 def binary_quantize(z_logits, gen=None, noise=True, u=None):
   """Bernoulli sample with straight-through probs (reference: quantize.py:55-68).
@@ -25,7 +27,7 @@ def binary_quantize(z_logits, gen=None, noise=True, u=None):
              + (1 - probs) * F.softplus(z_logits)).mean()
   if noise:
     if u is None:
-      u = torch.rand(z_logits.shape, generator=gen, device=z_logits.device)
+      u = parallel.rand(z_logits.shape, gen, z_logits.device)
     sample = (u < probs).float()
   else:
     sample = (probs > 0.5).float()
@@ -39,7 +41,7 @@ def rnld(z, gen=None, noise=True, noise_level=0.25, u=None):
   z = torch.tanh(z)
   if noise:
     if u is None:
-      u = torch.rand(z.shape, generator=gen, device=z.device)
+      u = parallel.rand(z.shape, gen, z.device)
     zn = z + noise_level * (2 * u - 1)
   else:
     zn = z

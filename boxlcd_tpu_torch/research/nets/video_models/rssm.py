@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from boxlcd_tpu_torch import parallel
 from boxlcd_tpu_torch.research.nets import dists
 from boxlcd_tpu_torch.research.nets.autoencoders.encoders import (
     ConvTrunk, DeconvTrunk, StateEmbed, StateHead)
@@ -33,7 +34,7 @@ def initial(batch_size, device):
 
 def _normal(gen, like, eps):
   if eps is None:
-    eps = torch.randn(like.shape, generator=gen, device=like.device)
+    eps = parallel.randn(like.shape, gen, like.device)
   return eps
 
 

@@ -18,9 +18,17 @@ An epoch's rollout runs on the device in one of three ways:
   - the unfused loop over `env.step` (preproc, cube-goal learned envs,
     --fused_rollout=0).
 Every draw (action normals, onestep uniforms, pool indices, the pools)
-can be handed in, so a test can feed JAX's. `--mesh` is not ported and
-raises. Checkpoints are the port's own: state dicts and optimizer states
-in a pickle, under JAX's file names.
+can be handed in, so a test can feed JAX's. Checkpoints are the port's
+own: state dicts and optimizer states in a pickle, under JAX's file names.
+
+`--mesh=dpN` (JAX: ppo.py:45-63, :190-195, :316-322) shards both fused
+epochs' env batch over N devices (`parallel.Mesh`): the policy (and in the
+learned env the FBT and its BVAE) is replicated per device; each device
+steps its envs; every draw is made at the whole batch's shape and sliced,
+so the trajectory is the same on any mesh. The (T, B) trajectory is
+gathered on its batch axis (axis 1), `last_v` on the batch; the learned
+env's pointer and clock stay shared. The update runs unsharded on the
+master. Without a mesh the epochs run as a mesh of one device.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from boxlcd_tpu_torch import parallel
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.research import utils
 from boxlcd_tpu_torch.research.nets._base import _to_cpu, write_atomic
@@ -65,8 +74,11 @@ def _stack(steps):
 
 class PPO(RLAlgo):
   def __init__(self, G):
-    if str(G.get('mesh', '') or ''):
-      raise NotImplementedError(f'--mesh={G.mesh}: sharding is not ported')
+    # --mesh=dpN shards the fused epochs' env batch (checked before any env
+    # is built, with JAX's messages)
+    self.mesh = parallel.parse_mesh(G.get('mesh', ''), G.device)
+    if self.mesh is not None:
+      self.mesh.check_divides(G.num_envs, 'num_envs')
     super().__init__(G)
     obs_space = self.obs_space
     act_dim = self.act_space.shape[-1]
@@ -89,6 +101,7 @@ class PPO(RLAlgo):
     self.buf = PPOBuffer(obs_shapes, act_dim, G.num_envs,
                          self.steps_per_epoch, G.gamma, G.lam)
     self._lenv_state = None
+    self._envs = self._lenv_models = None   # per device, built at first use
 
   # -- losses and updates (JAX: ppo.py:81-107) --------------------------------
   def _normals(self, shape, eps=None):
@@ -129,11 +142,17 @@ class PPO(RLAlgo):
     return loss.detach()
 
   @torch.no_grad()
-  def _step(self, obs, eps=None):
-    """(action, value, logp) of a batch of net observations."""
-    mu, std = self.ac.policy(obs)
-    a = mu + std * self._normals(mu.shape, eps)
-    return a, self.ac.value(obs), gaussian_logp(mu, std, a)
+  def _step(self, obs, eps=None, ac=None, gen=None):
+    """(action, value, logp) of a batch of net observations, on `ac` (a
+    replica; self.ac by default) with normals from `gen` (a shard's;
+    self.gen by default) unless eps is given."""
+    ac = self.ac if ac is None else ac
+    mu, std = ac.policy(obs)
+    if eps is None:
+      eps = parallel.randn(mu.shape, self.gen if gen is None else gen,
+                           mu.device)
+    a = mu + std * eps
+    return a, ac.value(obs), gaussian_logp(mu, std, a)
 
   def _obs_subset(self, o):
     G = self.G
@@ -217,28 +236,51 @@ class PPO(RLAlgo):
     venv = self.env
     d = {self.G.state_key: obs[self.G.state_key]}
     if venv.goal_mode == 'cube':
-      d[self.goal_key] = goals['full_state'][:, venv._gidx]
+      d[self.goal_key] = goals['full_state'][
+          :, venv._gidx.to(goals['full_state'].device)]
     else:
       d[self.goal_key] = goals['proprio']
     return d
 
+  def _shards(self):
+    """The fused epochs' mesh: --mesh's, else one device."""
+    return self.mesh or parallel.Mesh([self.device])
+
+  def _build_fused(self):
+    """The fused real epoch's env on each device of the mesh."""
+    self._envs = self._shards().envs(self.env.env)
+
   @torch.no_grad()
   def rollout(self, states, goals, steps, eps=None):
     """`steps` steps of policy + VecEnv._core_step on the device (autoreset
-    and goal resampling with the VecEnv's generator). Returns (states,
-    goals, traj, last_v), traj = (o, a, rew, v, logp, done, success) as
-    (T, B, ...) numpy arrays copied to the host once. eps (T, B, act):
-    the action normals, drawn from self.gen unless given."""
+    and goal resampling with the VecEnv's generator), over the mesh's
+    devices (`core_step_shards`). Returns (states, goals, traj, last_v),
+    traj = (o, a, rew, v, logp, done, success) as (T, B, ...) numpy arrays
+    copied to the host once. eps (T, B, act): the action normals, drawn
+    from self.gen unless given."""
     venv = self.env
-    o = self._net_obs(Env.observe(venv.env, states), goals)
-    traj = []
+    mesh = self._shards()
+    if self._envs is None:
+      self._build_fused()
+    envs, acs = self._envs, mesh.replicate(self.ac)
+    states, goals = mesh.shard(states), mesh.shard(goals)
+    o = [self._net_obs(Env.observe(e, s), g)
+         for e, s, g in zip(envs, states, goals)]
+    traj = [[] for _ in range(mesh.n)]
     for t in range(steps):
-      a, v, logp = self._step(o, None if eps is None else eps[t])
-      states, goals, obs, rew, done, _, success, _ = venv._core_step(
-          states, goals, a, venv.gen)
-      traj.append((o, a, rew, v, logp, done, success))
-      o = self._net_obs(obs, goals)
-    return states, goals, _stack(traj), to_numpy(self.ac.value(o))
+      draws = parallel.ShardDraws(self.gen, mesh.n)
+      eps_t = [None] * mesh.n if eps is None else mesh.shard(eps[t])
+      out = [self._step(o[i], eps_t[i], acs[i], draws.shard(i))
+             for i in range(mesh.n)]
+      states, goals, obs, rew, done, _, success, _ = venv.core_step_shards(
+          mesh, envs, states, goals, [a for a, _, _ in out], venv.gen)
+      for i, (a, v, logp) in enumerate(out):
+        traj[i].append((o[i], a, rew[i], v, logp, done[i], success[i]))
+        o[i] = self._net_obs(obs[i], goals[i])
+    last_v = [to_numpy(ac.value(oi)) for ac, oi in zip(acs, o)]
+    return (mesh.gather(states), mesh.gather(goals),
+            mesh.gather([_stack(tr) for tr in traj], axis=1),
+            mesh.gather(last_v))
 
   def _run_fused_epoch(self, ep_ret, ep_len):
     """Collect one epoch on the device and feed the host GAE buffer."""
@@ -261,9 +303,11 @@ class PPO(RLAlgo):
     return sample(), sample()
 
   def _fresh_wb(self, prompts):
+    """A window batch with the prompts (B rows) at position 0, on their
+    device."""
     lenv = self.env.lenv
-    raw, B, W = lenv.raw_env, lenv.num_envs, lenv.window
-    dev = self.device
+    raw, W = lenv.raw_env, lenv.window
+    B, dev = prompts['lcd'].shape[0], prompts['lcd'].device
     wb = {'lcd': torch.zeros((B, W, *raw.observation_space['lcd'].shape),
                              device=dev),
           'proprio': torch.zeros((B, W, max(1, raw.pobs_size)), device=dev),
@@ -271,6 +315,13 @@ class PPO(RLAlgo):
     for k in ('lcd', 'proprio'):
       wb[k][:, 0] = prompts[k].float()
     return wb
+
+  def _build_fused_lenv(self):
+    """The fused dream epoch's model on each device of the mesh: the
+    learned env's FBT (with its frozen BVAE) replicated."""
+    model = self.env.lenv.model
+    self._lenv_models = [model] + [model.replica(d) for d in
+                                   self._shards().devices[1:]]
 
   @torch.no_grad()
   def lenv_rollout(self, wb, ptr, ep_t, goals, steps, draws=None):
@@ -286,70 +337,90 @@ class PPO(RLAlgo):
     goal from the goal pool. `draws` may hold any of: 'prompt_pool' and
     'goal_pool' ({'lcd', 'proprio'}, POOL rows), 'eps' (T, B, act), 'u'
     (T, B, z) the onestep uniforms, 'pidx' and 'gidx' (T, B) pool
-    indices; the rest is drawn from self.gen. Returns (wb, ptr, ep_t,
-    goals, traj, last_v), traj as in `rollout`."""
+    indices; the rest is drawn from self.gen. Over a mesh, wb and goals
+    are sharded, the pools copied to every device, and each device runs
+    the step on its rows with its replicas. Returns (wb, ptr, ep_t, goals,
+    traj, last_v), traj as in `rollout`."""
     G = self.G
     renv = self.env
     lenv = renv.lenv
-    model, W, B = lenv.model, lenv.window, lenv.num_envs
-    bidx = renv._bidx
+    W = lenv.window
     temp = float(G.get('lenv_temp', 1.0))
     ep_len = int(G.ep_len)
-    dev = self.device
+    mesh = self._shards()
+    if self._lenv_models is None:
+      self._build_fused_lenv()
+    models, acs = self._lenv_models, mesh.replicate(self.ac)
     draws = dict(draws or {})
     if 'prompt_pool' not in draws or 'goal_pool' not in draws:
       draws['prompt_pool'], draws['goal_pool'] = self.sample_pools()
-    prompt_pool, goal_pool = draws['prompt_pool'], draws['goal_pool']
-    POOL = prompt_pool['lcd'].shape[0]
-    drawn = lambda k, t: None if k not in draws else draws[k][t]
+    POOL = draws['prompt_pool']['lcd'].shape[0]
+    pools = [{k: {f: v.to(d) for f, v in draws[k].items()}
+              for k in ('prompt_pool', 'goal_pool')} for d in mesh.devices]
+    bidx = [renv._bidx.to(d) for d in mesh.devices]
 
-    def index(k, t):
-      i = drawn(k, t)
-      if i is None:
-        return torch.randint(0, POOL, (B,), generator=self.gen, device=dev)
-      return i
+    def drawn(k, t):
+      return [None] * mesh.n if k not in draws else mesh.shard(draws[k][t])
 
     def net_obs(wb, ptr, goals):
       return {G.state_key: wb['proprio'][:, ptr - 1],
               self.goal_key: goals['goal:proprio']}
 
-    traj = []
+    wb, goals = mesh.shard(wb), mesh.shard(goals)
+    traj = [[] for _ in range(mesh.n)]
     for t in range(steps):
-      o = net_obs(wb, ptr, goals)
-      a, v, logp = self._step(o, drawn('eps', t))
-      # LearnedEnv.step
-      wb = dict(wb, action=wb['action'].clone())
-      wb['action'][:, ptr - 1] = a
-      wb = model.onestep(wb, ptr, self.gen, temp, u=drawn('u', t))
-      npro = wb['proprio'][:, ptr]
-      ptr = min(ptr + 1, W - 1)
-      if ptr == W - 1:
-        wb = {k: torch.cat([v_[:, 1:], torch.zeros_like(v_[:, :1])], 1)
-              for k, v_ in wb.items()}
-        ptr -= 1
+      shard_gens = parallel.ShardDraws(self.gen, mesh.n)
+      eps, u = drawn('eps', t), drawn('u', t)
+      pidx, gidx = drawn('pidx', t), drawn('gidx', t)
+      ptr2 = min(ptr + 1, W - 1)
+      slide = ptr2 == W - 1
       ep_t += 1
       timeout = ep_t >= ep_len                          # lockstep
-      # RewardLenv's body-goal reward
-      delta = (goals['goal:proprio'][:, bidx] - npro[:, bidx]).abs().mean(-1)
-      goal_done = delta < G.goal_thresh
-      tvec = torch.full((B,), timeout, device=dev)
-      success = goal_done & ~tvec
-      rew = (-delta + success) * G.rew_scale
-      done = tvec | goal_done
-      # autoreset: every row from the prompt pool on the (lockstep)
-      # timeout; a new goal where a row reached its goal or timed out
+      for i, (model, ac) in enumerate(zip(models, acs)):
+        gen = shard_gens.shard(i)
+        wbi, gi = wb[i], goals[i]
+        B, dev = wbi['action'].shape[0], wbi['action'].device
+        o = net_obs(wbi, ptr, gi)
+        a, v, logp = self._step(o, eps[i], ac, gen)
+        # LearnedEnv.step
+        wbi = dict(wbi, action=wbi['action'].clone())
+        wbi['action'][:, ptr - 1] = a
+        wbi = model.onestep(wbi, ptr, gen, temp, u=u[i])
+        npro = wbi['proprio'][:, ptr]
+        if slide:
+          wbi = {k: torch.cat([v_[:, 1:], torch.zeros_like(v_[:, :1])], 1)
+                 for k, v_ in wbi.items()}
+        # RewardLenv's body-goal reward
+        b = bidx[i]
+        delta = (gi['goal:proprio'][:, b] - npro[:, b]).abs().mean(-1)
+        goal_done = delta < G.goal_thresh
+        tvec = torch.full((B,), timeout, device=dev)
+        success = goal_done & ~tvec
+        rew = (-delta + success) * G.rew_scale
+        done = tvec | goal_done
+        # autoreset: every row from the prompt pool on the (lockstep)
+        # timeout; a new goal where a row reached its goal or timed out
+        if timeout:
+          p = pidx[i] if pidx[i] is not None else parallel.randint(
+              POOL, (B,), gen, dev)
+          wbi = self._fresh_wb({k: v_[p] for k, v_ in
+                                pools[i]['prompt_pool'].items()})
+        g = gidx[i] if gidx[i] is not None else parallel.randint(
+            POOL, (B,), gen, dev)
+        goals[i] = {k: torch.where(done.view(B, *([1] * (x.dim() - 1))),
+                                   pools[i]['goal_pool'][k.split(':')[1]][g],
+                                   x)
+                    for k, x in gi.items()}
+        wb[i] = wbi
+        traj[i].append((o, a, rew, v, logp, done, success))
+      ptr = ptr2 - 1 if slide else ptr2
       if timeout:
-        pidx = index('pidx', t)
-        wb = self._fresh_wb({k: v_[pidx] for k, v_ in prompt_pool.items()})
         ptr, ep_t = 1, 0
-      gidx = index('gidx', t)
-      gmask = done
-      goals = {k: torch.where(gmask.view(B, *([1] * (g.dim() - 1))),
-                              goal_pool[k.split(':')[1]][gidx], g)
-               for k, g in goals.items()}
-      traj.append((o, a, rew, v, logp, done, success))
-    last_v = to_numpy(self.ac.value(net_obs(wb, ptr, goals)))
-    return wb, ptr, ep_t, goals, _stack(traj), last_v
+    last_v = [to_numpy(ac.value(net_obs(w, ptr, g)))
+              for ac, w, g in zip(acs, wb, goals)]
+    return (mesh.gather(wb), ptr, ep_t, mesh.gather(goals),
+            mesh.gather([_stack(tr) for tr in traj], axis=1),
+            mesh.gather(last_v))
 
   def _run_fused_lenv_epoch(self, ep_ret, ep_len_acc):
     """Collect one dream epoch on the device and feed the host GAE

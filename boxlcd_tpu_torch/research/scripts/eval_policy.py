@@ -9,7 +9,9 @@ research/scripts/evaluations/eval_policy.py:44-71, README.md:121): success
 Rebuilds the algo from the checkpoint's G (on the real env: lenv=0,
 mesh='', fused_rollout=0; the command line's logdir, seed,
 test_deterministic, algo and device win), writes logdir/eval_policy.pkl
-and an evidence JSON into EVIDENCE_DIR.
+and an evidence JSON into EVIDENCE_DIR, the port's own folder
+(logs/evidence/torch/): a port result never lands on one of the JAX
+package's files in logs/evidence/, whose names it would share.
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ from boxlcd_tpu_torch.utils import AttrDict, set_tf32
 # ran 100 iters x 10 process-envs)
 N_ENVS = 100
 ITERS = 10
-# the committed evidence folder (.gitignore keeps logs/evidence/)
-EVIDENCE_DIR = Path(__file__).resolve().parents[3] / 'logs' / 'evidence'
+# the port's committed evidence folder (.gitignore keeps logs/evidence/;
+# the JAX package's files sit one level up)
+EVIDENCE_DIR = (Path(__file__).resolve().parents[3] / 'logs' / 'evidence'
+                / 'torch')
 CLI_KEYS = ('logdir', 'seed', 'test_deterministic', 'algo', 'device')
 
 

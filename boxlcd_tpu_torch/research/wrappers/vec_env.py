@@ -16,7 +16,9 @@ evaluation code relies on:
 Randomness comes from an explicit torch.Generator on the env's device (the
 JAX version splits a PRNG key). `_core_step` and `_core_reset_some` are the
 batched cores on device tensors, for callers that drive the env without the
-numpy shell. `load_numpy(states, goals)` sets the batch from numpy arrays
+numpy shell; `core_step_shards` is `_core_step` over a `parallel.Mesh`
+(PPO's fused epoch under --mesh). `load_numpy(states, goals)` sets the
+batch from numpy arrays
 (boxlcd_tpu's WorldState field names), so another VecEnv's state can be
 carried over.
 """
@@ -25,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from boxlcd_tpu_torch import spaces, utils
+from boxlcd_tpu_torch import parallel, spaces, utils
 from boxlcd_tpu_torch.engine import physics
 from boxlcd_tpu_torch.envs.env import Env
 
@@ -89,20 +91,27 @@ class VecEnv:
         st = physics.step_world_batch(env.spec, st, zero)
     return Env.observe(env, st)
 
+  def _draw_fresh(self, gen, B):
+    """B fresh worlds and (with goals) their goals, drawn from gen."""
+    fresh = Env.reset(self.env, gen, B)
+    return fresh, self._sample_goals(gen, B) if self.goal_mode else None
+
+  def _where_reset(self, states, goals, mask, fresh, new):
+    """The fresh worlds and goals where mask (B,) bool."""
+    states = physics.WorldState(*(_where(mask, f, s)
+                                  for s, f in zip(states, fresh)))
+    if self.goal_mode:
+      goals = {k: _where(mask, new[k], goals[k]) for k in goals}
+    return states, goals
+
   def _core_reset_some(self, states, goals, gen, mask):
     """Reset the worlds where mask (B,) bool, and resample their goals.
     Returns (states, goals, obs). Reads mask on the host: with no world to
     reset, nothing is sampled."""
-    env = self.env
     if bool(mask.any()):
-      B = mask.shape[0]
-      fresh = Env.reset(env, gen, B)
-      states = physics.WorldState(*(_where(mask, f, s)
-                                    for s, f in zip(states, fresh)))
-      if self.goal_mode:
-        new = self._sample_goals(gen, B)
-        goals = {k: _where(mask, new[k], goals[k]) for k in goals}
-    return states, goals, Env.observe(env, states)
+      fresh, new = self._draw_fresh(gen, mask.shape[0])
+      states, goals = self._where_reset(states, goals, mask, fresh, new)
+    return states, goals, Env.observe(self.env, states)
 
   def comp_rew_done(self, obs, goals):
     """(rew, success, delta) per world: the negative mean |goal - position|
@@ -112,27 +121,52 @@ class VecEnv:
       key = 'proprio' if self.goal_mode == 'body' else 'full_state'
       thresh = (self.G.goal_thresh if self.goal_mode == 'body'
                 else CUBE_SUCCESS)
-      delta = (goals[key][:, self._gidx]
-               - obs[key][:, self._gidx]).abs().mean(-1)
+      gidx = self._gidx.to(obs[key].device)
+      delta = (goals[key][:, gidx] - obs[key][:, gidx]).abs().mean(-1)
       success = delta < thresh
       return -delta + success, success, delta
     z = torch.zeros(obs['lcd'].shape[0], device=obs['lcd'].device)
     return z, torch.zeros_like(z, dtype=torch.bool), z
 
-  def _core_step(self, states, goals, actions, gen):
-    """One batched step with autoreset. Returns (states, goals, obs, rew,
-    done, timeout, success, delta); obs of a world that was done are its
-    fresh episode's first."""
-    states, obs, _, timeout, _ = Env.step(self.env, states, actions)
+  def _step_local(self, env, states, goals, actions):
+    """The draw-free part of a step, on `env`'s device: physics,
+    observation, reward and done. Returns (states, obs, rew, done,
+    timeout, success, delta)."""
+    states, obs, _, timeout, _ = Env.step(env, states, actions)
     rew, success, delta = self.comp_rew_done(obs, goals)
     if self.goal_mode:
       done = timeout | success
       rew = rew * self.G.get('rew_scale', 1.0)
     else:
       done = timeout
-    if bool(done.any()):
-      states, goals, obs2 = self._core_reset_some(states, goals, gen, done)
-      obs = {k: _where(done, obs2[k], o) for k, o in obs.items()}
+    return states, obs, rew, done, timeout, success, delta
+
+  def _core_step(self, states, goals, actions, gen):
+    """One batched step with autoreset. Returns (states, goals, obs, rew,
+    done, timeout, success, delta); obs of a world that was done are its
+    fresh episode's first."""
+    out = self.core_step_shards(parallel.Mesh([self.device]), [self.env],
+                                [states], [goals], [actions], gen)
+    return tuple(field[0] for field in out)
+
+  def core_step_shards(self, mesh, envs, states, goals, actions, gen):
+    """`_core_step` over a parallel.Mesh: states, goals and actions are
+    lists of the devices' slices of the batch, envs the env on each device.
+    Each device steps its worlds; the autoreset's fresh worlds and goals are
+    drawn on the master at the whole batch's shape, as `_core_step` draws
+    them, and sliced. Returns the same tuple with a list per field."""
+    outs = [self._step_local(e, s, g, a)
+            for e, s, g, a in zip(envs, states, goals, actions)]
+    states, obs, rew, done, timeout, success, delta = map(list, zip(*outs))
+    any_done = mesh.gather(done)
+    if bool(any_done.any()):
+      fresh, new = self._draw_fresh(gen, any_done.shape[0])
+      fresh, new = mesh.shard(fresh), mesh.shard(new)
+      for i, e in enumerate(envs):
+        states[i], goals[i] = self._where_reset(states[i], goals[i], done[i],
+                                                fresh[i], new[i])
+        obs2 = Env.observe(e, states[i])
+        obs[i] = {k: _where(done[i], obs2[k], o) for k, o in obs[i].items()}
     return states, goals, obs, rew, done, timeout, success, delta
 
   # -- numpy shell ---------------------------------------------------------------

@@ -48,18 +48,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      tripwire, no solver kernel); the barrels must load and hold finite,
      non-blank data. Then the device's busy share of a whole call and the
      per-layer times of one dispatch;
-  9. per-step path: `fill_barrels` with collect_mega=0 at 1000 worlds x 10
+  9. per-step path: `fill_barrels` with collect_mega=0 at 1000 worlds x 5
      steps (the lcd raster launches once a step), and the per-layer times of
      one step at 4000 worlds;
   10. solver path: bench.py's BENCH_SOLVER=sub line, Urchin, 4096 worlds, at
-     25 of its 100 steps, of step_world_batch with the substep kernel, then
-     Env.observe, launches counted as in phase 8 (substep kernel 25 x
-     substeps, lcd raster 25, no other); the final state equal to the
+     10 of its 100 steps, of step_world_batch with the substep kernel, then
+     Env.observe, launches counted as in phase 8 (substep kernel 10 x
+     substeps, lcd raster 10, no other); the final state equal to the
      plain path's bit for bit; the busy share, the per-layer times of one
      step, and both solver kernels' times beside their bounds and plain
      versions, their launch geometry, occupancy and block-size times;
   11. VecEnv: Luxo in body mode, 8 envs, ep_len + 1 steps (autoreset runs;
-     ep_len cut from 100 to 10), then LuxoCube in cube mode; numpy
+     ep_len cut from 100 to 5), then LuxoCube in cube mode (3 steps); numpy
      observations, the lcd raster at least once a step, timeouts on ep_len;
   12. world models on Urchin (16x32, ep_len 100) at research/scripts/
      kicker.py's widths: collection through the port's research.main
@@ -143,7 +143,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      each (solver iterations 8/4), every file decoding, launches counted,
      s each; card against CPU: optimize_actions (3 iterations, the same
      uniforms) and the Fiddler's sensitivities within 2e-4, MiniGPT's
-     loss after one Adam step within 1e-6 relative.
+     loss after one Adam step within 1e-6 relative;
+  17. entry points, on phase 12's data and FBT, with N = the card count:
+     research.main --mode=collect --mesh=dpN (the per-step path, 1000
+     worlds x phase 9's 5 steps, native; the lcd raster N launches a step)
+     against fill_barrels' unsharded per-step path from the same seed (lcd
+     and action bit for bit, floats within 3e-7); --mode=train of phase
+     12's BVAE, 5 steps, --mesh=dpN against unsharded (losses within phase
+     12's 1e-6 rel); research.rl.main ppo at phase 15's widths, one fused
+     real-env epoch (2 steps) and one fused learned-env epoch (10 dream
+     steps) with --mesh=dpN against unsharded (GAE buffers within 1e-6,
+     losses within 1e-6 rel, dream frames bit for bit; over N > 1 cards a
+     few dream envs may part at a token draw, `_dream_parting`, and the
+     rest must still agree); --mesh=dp{N+1}
+     raising JAX's assertion in all three and in dryrun_multichip;
+     graft_entry.entry() and dryrun_multichip(N) at the production widths;
+     the port's bench.py: the auto line at its defaults (Urchin, 4096
+     worlds, 8/4, T = 100, K = 4, 3 iterations: megakernel 13 + 3 for
+     mega_smoke, traj raster 13), the sub and jnp lines at BENCH_STEPS=2,
+     BENCH_PIPELINE=1, 1 iteration (substep kernel 12, lcd raster 4; lcd
+     raster 4), each line's env-steps/s, launches counted from 0.
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -157,6 +176,7 @@ import dataclasses
 import importlib.util
 import json
 import math
+import os
 import pickle
 import re
 import subprocess
@@ -165,6 +185,7 @@ import tempfile
 import time
 import types
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -216,7 +237,7 @@ MAIN_ENV, MAIN_BATCH, MAIN_BARRELS = 'Urchin', 4000, 4
 TRIPWIRE_FRAMES = 16                        # the main path's lcd raster call
 VEC_BATCH = 8                               # the VecEnv's lcd raster call
 TRAJ_SHAPES = [(2, 1000), (64, 4096)]       # (T, B), up to 262144 frames
-PER_STEP_BATCH, PER_STEP_T = 1000, 10       # the per-step path, cut in depth
+PER_STEP_BATCH, PER_STEP_T = 1000, 5        # the per-step path, cut in depth
 # tests/test_mega.py's shape is 1024 x 34 (4 random-action steps, then 30
 # zero-action steps); cut to 4 + 20: of the four envs whose plain sleep
 # share must pass 0.2, UrchinBall reads 0.30 and Urchin 0.39 at 24 steps on
@@ -240,10 +261,10 @@ VEL_FIELDS = ['v', 'w', 'c', 'a']           # test_pallas: within 1e-4
 SUB_FIELDS = ['v', 'w', 'c', 'a', 'wc_imp', 'pc_imp', 'j_imp', 'j_mot',
               'j_lim', 'sleep_time']        # test_pallas: within 2e-3
 SOLVER_BATCH = 4096                         # bench.py's BENCH_SOLVER=sub line
-SOLVER_STEPS = 25                           # its 100 steps, cut in depth
+SOLVER_STEPS = 10                           # its 100 steps, cut in depth
 VEC_ENV, VEC_CUBE_ENV, VEC_ENVS = 'Luxo', 'LuxoCube', 8   # define_config:84
-VEC_CUBE_STEPS = 5
-VEC_EP_LEN = 10                             # ep_len 100, cut in depth
+VEC_CUBE_STEPS = 3
+VEC_EP_LEN = 5                              # ep_len 100, cut in depth
 WM_BARRELS = {'train': 2, 'test': 1}       # the world models' data, Urchin
 WM_COMMON = ['--env=Urchin', '--bs=64', '--lr=5e-4', '--vel_iters=8',
              '--pos_iters=4']               # kicker.py's --lr default
@@ -3240,9 +3261,338 @@ def viz_phase(dev, smi, tmp):
   return out
 
 
+# phase 17, the entry points: --mesh=dpN at N = the card count through
+# research.main (collect, train) and research.rl.main (PPO's fused real and
+# learned-env epochs), each against the same run without --mesh, and
+# --mesh=dp{N+1} raising; graft_entry; the port's bench.py lines
+ENTRY_COLLECT = ['--env=Urchin', '--vel_iters=8', '--pos_iters=4',
+                 f'--ep_len={PER_STEP_T}', '--train_barrels=1',
+                 '--test_barrels=0', f'--num_envs={BARREL_SIZE}',
+                 '--barrel_format=native']     # phase 9's depth, one barrel
+ENTRY_TRAIN = ['--model=BVAE', '--total_itr=5', '--log_n=5', '--window=5']
+# PPO at phase 15's widths; the real test's ep_len cut to 3 (each real-env
+# test step is a plain step of 8 worlds, 0.6-0.9 s)
+ENTRY_PPO_REAL = ['--lenv=0', '--steps_per_epoch=256', '--total_steps=256',
+                  '--ep_len=3']
+ENTRY_PPO_LENV = ['--lenv=1', '--model=FBT', '--steps_per_epoch=1280',
+                  '--total_steps=1280', '--lenv_test=0', '--ep_len=3']
+ENTRY_BENCH_SHORT = {'BENCH_STEPS': '2', 'BENCH_PIPELINE': '1',
+                     'BENCH_MEGA_SMOKE': '0'}   # the sub and jnp lines
+
+
+def _mesh_raises(label, fn, n):
+  """fn must raise JAX's assertion for a mesh of n devices on n - 1."""
+  want = f'mesh dp{n} needs {n} devices, have {n - 1}'
+  try:
+    fn()
+  except AssertionError as e:
+    if str(e) != want:
+      raise RuntimeError(f'{label} --mesh=dp{n}: {e!r}, not {want!r}')
+    log(f'[entry] {label} --mesh=dp{n} raises: {e}')
+    return
+  raise RuntimeError(f'{label} --mesh=dp{n} ran on {n - 1} cards')
+
+
+def _entry_collect(tmp, N):
+  """research.main --mode=collect --mesh=dpN against the unsharded
+  per-step path (fill_barrels with collect_mega=0, as the CLI's collect
+  calls it: the same flags and seed)."""
+  out, bars = {}, {}
+  for name in ('mesh', 'plain'):
+    folder = tmp / 'entry_collect' / name
+    _zero_launches()
+    t0 = time.perf_counter()
+    if name == 'mesh':
+      research_main.main(['--mode=collect', f'--logdir={folder}',
+                          *ENTRY_COLLECT, f'--mesh=dp{N}'])
+    else:
+      G, env = research_main.parse_flags(['--mode=collect',
+                                          f'--logdir={folder}',
+                                          *ENTRY_COLLECT])
+      G.collect_mega = 0
+      fill_barrels(env, int(G.train_barrels), 'train', G, torch.Generator(
+          device=env.device).manual_seed(int(G.seed)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    (f,) = sorted((folder / 'train').glob('*.tbarrel.npz'))
+    bars[name] = RolloutDataset(folder / 'train', infinite=False)._load(f)
+    log(f'[entry] collect, {name} ({BARREL_SIZE} x {PER_STEP_T}, native): '
+        f'{wall:.2f} s, '
+        f'{BARREL_SIZE * PER_STEP_T / wall:.1f} env-steps/s; launches '
+        f'{launches}')
+    # the per-step path on every shard: one lcd raster launch a step
+    if launches != _expect(lcd_raster=(N if name == 'mesh' else 1)
+                           * PER_STEP_T):
+      raise RuntimeError(f'collect {name}: launches {launches}')
+    out[name] = dict(wall_s=wall, launches=launches,
+                     env_steps_per_s=BARREL_SIZE * PER_STEP_T / wall)
+  a, b = bars['mesh'], bars['plain']
+  if set(a) != set(b):
+    raise RuntimeError(f'collect barrels: keys {sorted(a)} vs {sorted(b)}')
+  err = {}
+  for k in b:
+    if a[k].dtype.kind == 'f':
+      err[k] = float(np.abs(a[k] - b[k]).max())
+      if err[k] > 3e-7:          # tests/test_multichip.py's float slack
+        raise RuntimeError(f'collect --mesh: {k} {err[k]:.3e} apart')
+    elif not np.array_equal(a[k], b[k]):
+      raise RuntimeError(f'collect --mesh: {k} not bit for bit')
+  if b['lcd'].all() or not b['lcd'].any():
+    raise RuntimeError('collect --mesh: blank frames')
+  log(f'[entry] collect --mesh=dp{N} against unsharded: lcd and action '
+      f'bit for bit, floats {err}')
+  out['float_err'] = err
+  _mesh_raises('research.main --mode=collect', lambda: research_main.main(
+      ['--mode=collect', f'--logdir={tmp / "entry_collect" / "x"}',
+       *ENTRY_COLLECT, f'--mesh=dp{N + 1}']), N + 1)
+  return out
+
+
+def _entry_train(tmp, N):
+  out, hist = {}, {}
+  data = tmp / 'data'
+  for name, extra in (('mesh', [f'--mesh=dp{N}']), ('plain', [])):
+    _zero_launches()
+    model, hist[name], wall = _wm_train([
+        f'--datadir={data}', f'--logdir={tmp / "entry_train" / name}',
+        *WM_COMMON, *WM_BVAE, *ENTRY_TRAIN, *extra])
+    if (model.mesh is None) != (name == 'plain') or \
+        (model.mesh is not None and model.mesh.n != N):
+      raise RuntimeError(f'train {name}: mesh {model.mesh}')
+    log(f'[entry] research.main --mode=train BVAE {" ".join(extra)}: '
+        f'{wall:.2f} s ({ENTRY_TRAIN[1]}); mesh {model.mesh}; launches '
+        f'{_launches()}')
+    out[name] = dict(wall_s=wall)
+  rel = {}
+  for (i, a), (j, b) in zip(hist['mesh'], hist['plain']):
+    for k in b:
+      if 'loss' in k:
+        r = abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+        rel[f'{i}:{k}'] = r
+        if i != j or not math.isfinite(a[k]) or r > WM_LOSS_RTOL:
+          raise RuntimeError(f'train --mesh: {k} at {i}: {a[k]} vs {b[k]}')
+  if not rel:
+    raise RuntimeError('train --mesh: no losses logged')
+  log(f'[entry] train --mesh=dp{N} against unsharded: losses within '
+      f'{max(rel.values()):.3e} rel (gate {WM_LOSS_RTOL})')
+  out['loss_rel'] = max(rel.values())
+  _mesh_raises('research.main --mode=train', lambda: research_main.main(
+      ['--mode=train', f'--datadir={data}',
+       f'--logdir={tmp / "entry_train" / "x"}', *WM_COMMON, *WM_BVAE,
+       *ENTRY_TRAIN, f'--mesh=dp{N + 1}']), N + 1)
+  return out
+
+
+def _dream_parting(a, b, tol=1e-6):
+  """Over N > 1 cards, per env of two dream epochs' GAE buffers (mesh,
+  unsharded): the first step at which its reward or observation differ
+  beyond tol. Each shard's FBT and BVAE run at their own batch size, so
+  their products round differently (~1e-6); a token draw whose uniform
+  sits that close to its probability flips, and that env's dream parts
+  from there on. Returns ({env: first step}, the largest difference of
+  any field before each env's parting, with adv/ret (sums over the
+  future) only for envs that never part)."""
+  T, B = a.rew.shape
+  fields = {f: np.abs(getattr(a, f) - getattr(b, f)).reshape(T, B, -1)
+            .max(-1) for f in ('act', 'rew', 'val', 'logp', 'adv', 'ret')}
+  for k in b.obs:
+    fields[f'obs:{k}'] = np.abs(a.obs[k] - b.obs[k]).reshape(T, B, -1).max(-1)
+  parts = np.maximum(fields['rew'], *(v for k, v in fields.items()
+                                      if k.startswith('obs:'))) > tol
+  parted = {int(i): int(np.argmax(parts[:, i])) for i in range(B)
+            if parts[:, i].any()}
+  worst = 0.0
+  for f, d in fields.items():
+    for i in range(B):
+      if i not in parted:
+        worst = max(worst, float(d[:, i].max()))
+      elif f not in ('adv', 'ret') and parted[i]:
+        worst = max(worst, float(d[:parted[i], i].max()))
+  return parted, worst
+
+
+def _entry_ppo(tmp, N, writer):
+  out = {}
+  for kind, argv in (('real', ENTRY_PPO_REAL),
+                     ('lenv', [*ENTRY_PPO_LENV,
+                               f'--weightdir={tmp / "fbt"}'])):
+    algos, losses = {}, {}
+    for name, extra in (('mesh', [f'--mesh=dp{N}']), ('plain', [])):
+      algos[name], wall, launches = _rl_run(
+          f'PPO {kind} {" ".join(extra)}',
+          [*RL_COMMON, *argv, *extra,
+           f'--logdir={tmp / "entry_ppo" / kind / name}', 'ppo'], writer)
+      losses[name] = {k: _logged(writer, k) for k in ('loss/pi', 'loss/v')}
+      out[f'{kind}_{name}'] = dict(wall_s=wall, launches=launches)
+    a, b = algos['mesh'].buf, algos['plain'].buf
+    errs = {k: float(np.abs(getattr(a, k) - getattr(b, k)).max())
+            for k in ('act', 'rew', 'val', 'logp', 'adv', 'ret')}
+    errs.update({f'obs:{k}': float(np.abs(a.obs[k] - b.obs[k]).max())
+                 for k in b.obs})
+    parted = {}
+    if max(errs.values()) > 1e-6:
+      if N == 1 or kind != 'lenv':
+        raise RuntimeError(f'PPO {kind} --mesh: buffers apart {errs}')
+      # over several cards a dream env may part at a token draw (see
+      # _dream_parting); every other env, and each parted one up to its
+      # parting, must still agree, and few may part
+      parted, worst = _dream_parting(a, b)
+      log(f'[entry] PPO lenv --mesh=dp{N}: {len(parted)} of {a.B} dream '
+          f'envs part at steps {parted}; before that and elsewhere within '
+          f'{worst:.3e} (all fields: {errs})')
+      if worst > 1e-6 or len(parted) > a.B // 10:
+        raise RuntimeError(f'PPO lenv --mesh: buffers apart {errs}, parted '
+                           f'envs {parted}, {worst:.3e} elsewhere')
+    if not parted:   # the update mixes every env's samples
+      for k in ('loss/pi', 'loss/v'):
+        x, y = losses['mesh'][k], losses['plain'][k]
+        if not y or len(x) != len(y) or any(
+            abs(p - q) > WM_LOSS_RTOL * abs(q) for p, q in zip(x, y)):
+          raise RuntimeError(f'PPO {kind} --mesh: {k} {x} vs {y}')
+    if kind == 'lenv':
+      wa, wb = algos['mesh']._lenv_state[0], algos['plain']._lenv_state[0]
+      keep = [i for i in range(a.B) if i not in parted]
+      if not torch.equal(wa['lcd'][keep], wb['lcd'][keep]):
+        raise RuntimeError('PPO lenv --mesh: dream frames differ')
+    log(f'[entry] PPO {kind} epoch --mesh=dp{N} against unsharded: buffers '
+        f'within {max(errs.values()):.3e}'
+        + (f', losses within {WM_LOSS_RTOL} rel' if not parted else
+           f'; {len(parted)} parted envs')
+        + (', dream lcd bit for bit' if kind == 'lenv' else '')
+        + (' (the others)' if parted else ''))
+    out[f'{kind}_buffer_err'] = max(errs.values())
+    out[f'{kind}_parted'] = parted
+  _mesh_raises('research.rl.main ppo', lambda: rl_main.main(
+      [*RL_COMMON, *ENTRY_PPO_REAL, f'--logdir={tmp / "entry_ppo" / "x"}',
+       f'--mesh=dp{N + 1}', 'ppo']), N + 1)
+  return out
+
+
+def _entry_bench(smi):
+  """The port's bench.py lines, each with every launch count set to 0 just
+  before and read just after."""
+  from boxlcd_tpu_torch import bench
+  out = {}
+  lines = (('auto', {}, 3), ('sub', {'BENCH_SOLVER': 'sub',
+                                     **ENTRY_BENCH_SHORT}, 1),
+           ('jnp', {'BENCH_SOLVER': 'jnp', **ENTRY_BENCH_SHORT}, 1))
+  for name, env, iters in lines:
+    with mock.patch.dict(os.environ):   # restored on exit
+      for k in [k for k in os.environ if k.startswith('BENCH_')]:
+        del os.environ[k]
+      os.environ.update(env)
+      _zero_launches()
+      t0 = time.perf_counter()
+      rec = bench.main(iters=iters)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - t0
+      launches = _launches()
+    T = int(env.get('BENCH_STEPS', 0)) or 100
+    K = int(env.get('BENCH_PIPELINE', 4))
+    steps = T * (1 + K * iters)           # the warm chunk, then the timed
+    if name == 'auto':
+      n = 1 + K * iters
+      want = _expect(mega_rollout=n + 3, traj_raster=n)   # + mega_smoke
+      if rec['solver'] != 'mega' or rec.get('mega_smoke') != \
+          'Urchin:ok,LuxoCube:ok,Object3:ok':
+        raise RuntimeError(f'bench auto line: {rec}')
+    elif name == 'sub':
+      want = _expect(substep_solver=steps * 3, lcd_raster=steps)
+    else:
+      want = _expect(lcd_raster=steps)
+    log(f'[entry] bench {name}: {rec["value"]} env-steps/s '
+        f'({rec["metric"]}, {rec["solver"]}) on {smi}; {wall:.1f} s; '
+        f'launches {launches}')
+    if launches != want or rec['metric'] != 'env_steps_per_sec_urchin_4096' \
+        or not rec['value'] > 0 or rec['card'] != smi:
+      raise RuntimeError(f'bench {name}: {rec}; launches {launches}, '
+                         f'not {want}')
+    out[name] = dict(rec=rec, launches=launches, wall_s=wall,
+                     busy_share=_bench_busy(rec['solver'], T))
+  return out
+
+
+def _bench_busy(kind, T):
+  """The device's busy share of one warm bench chunk (device time over
+  the call's wall time): T steps of `kind` at 4096 worlds, the plain
+  step's chunk cut to one step (~43,000 events a step). Device time from
+  the profiler, and for the mega chunk (a few dozen launches, within the
+  launch queue) from CUDA events too."""
+  from boxlcd_tpu_torch import bench
+  T = 1 if kind == 'jnp' else T
+  env = bench.make_env('Urchin', 8, 4, torch.device('cuda'))
+  chunk = bench.make_chunk(env, kind, T)
+  gen = torch.Generator(device='cuda').manual_seed(0)
+  st = Env.reset(env, gen, 4096)
+  acts = torch.rand((T, 4096, env.act_size), generator=gen,
+                    device='cuda') * 2 - 1
+  st, _ = chunk(st, acts)
+  torch.cuda.synchronize()
+  with torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    chunk(st, acts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  dev_ms, events = _device_time(prof)
+  busy = (dev_ms or 0.0) / 1e3 / wall
+  log(f'[entry] bench {kind} busy share: {busy:.4f} (device '
+      f'{_fmt(dev_ms)} in {events} events of {wall * 1e3:.1f} ms, one chunk '
+      f'of {T} steps, profiled)')
+  out = dict(profiled=busy, device_ms=dev_ms, events=events,
+             wall_ms=wall * 1e3)
+  if kind == 'mega':
+    ev = events_ms(lambda: chunk(st, acts), 3)
+    w = wall_ms(lambda: chunk(st, acts), 3)
+    out.update(events_busy=ev / w, events_device_ms=ev, events_wall_ms=w)
+    log(f'[entry] bench mega busy share: {ev / w:.4f} (device {ev:.3f} ms '
+        f'a chunk by CUDA events, behind a sleep; {w:.3f} ms a chunk with '
+        f'dispatch, synchronised)')
+  return out
+
+
+def entry_points_phase(dev, smi, tmp):
+  """--mesh=dpN (N = the card count) through the CLIs against unsharded
+  runs, --mesh=dp{N+1} raising, graft_entry's entry and dryrun_multichip,
+  and the port's bench.py lines; reuses phase 12's data, BVAE flags and FBT
+  (`tmp`)."""
+  from boxlcd_tpu_torch import graft_entry
+  set_tf32(False)
+  N = torch.cuda.device_count()
+  writer = ScalarWriter()
+  saved_writer = research_utils.make_writer
+  research_utils.make_writer = lambda logdir: writer
+  out = {'cards': N}
+  try:
+    out['collect'] = _entry_collect(tmp, N)
+    out['train'] = _entry_train(tmp, N)
+    out['ppo'] = _entry_ppo(tmp, N, writer)
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    y = fn(*args)
+    if y.device.type != 'cuda' or not bool(torch.isfinite(y).all()):
+      raise RuntimeError(f'graft_entry.entry: {y.device} {y.shape}')
+    log(f'[entry] graft_entry.entry(): {tuple(y.shape)} on {y.device}')
+    graft_entry.dryrun_multichip(N)
+    out['dryrun_s'] = time.perf_counter() - t0
+    log(f'[entry] entry + dryrun_multichip({N}): {out["dryrun_s"]:.1f} s')
+    _mesh_raises('graft_entry.dryrun_multichip',
+                 lambda: graft_entry.dryrun_multichip(N + 1), N + 1)
+  finally:
+    research_utils.make_writer = saved_writer
+  out['bench'] = _entry_bench(smi)
+  return out
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument('--out', default=None, help='also write the results here')
+  ap.add_argument('--phases', default='',
+                  help='rehearsal: run only these phases (comma list of '
+                       'the names below; the build always runs); prints '
+                       'no result line')
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3253,7 +3603,11 @@ def main():
   build, ptxas = build_phase()
   phase_s = {}
 
+  only = set(filter(None, args.phases.split(',')))
+
   def run(name, fn, *a):
+    if only and name not in only:
+      return None
     t0 = time.time()
     out = fn(*a)
     phase_s[name] = time.time() - t0
@@ -3262,7 +3616,7 @@ def main():
 
   kern = run('kernel', kernel_phase, dev)
   traj = run('traj', traj_phase, dev)
-  meg, mega_refs = run('mega', mega_phase, dev)
+  meg, mega_refs = run('mega', mega_phase, dev) or (None, None)
   ref = run('reference', reference_phase, dev)
   sol = run('solver', solver_phase, dev, mega_refs)
   main_run = run('main', main_path_phase, dev, smi)
@@ -3271,13 +3625,19 @@ def main():
   vec = run('vec-env', vec_env_phase, dev, smi)
   with tempfile.TemporaryDirectory() as tmp:
     wm, (bvae, fbt) = run('world-model', world_model_phase, dev, smi,
-                          Path(tmp))
+                          Path(tmp)) or (None, (None, None))
     ev = run('evaluation', evaluation_phase, dev, smi, Path(tmp), bvae, fbt)
-    vm, models = run('video-models', video_model_phase, dev, smi, Path(tmp))
+    vm, models = run('video-models', video_model_phase, dev, smi,
+                     Path(tmp)) or (None, {'FRNLD': None})
     lenv = run('learned-env', learned_env_phase, dev, smi, Path(tmp), bvae,
                fbt, models['FRNLD'])
     rl = run('rl', rl_phase, dev, smi, Path(tmp))
     viz = run('viz', viz_phase, dev, smi, Path(tmp))
+    entry = run('entry', entry_points_phase, dev, smi, Path(tmp))
+  if only:
+    log(f'[done] phases {sorted(phase_s)} in {time.time() - t_start:.1f} s '
+        f'(a rehearsal: no result line)')
+    return 0
   lt, tt, mt = kern['times'][TRIPWIRE_FRAMES], traj['times'], meg['times']
   launches = main_run['launches']
   sk = sol_path['kernels']
@@ -3314,6 +3674,12 @@ def main():
       'bound_ms': sk[kind]['bound_ms'], 'bound_by': sk[kind]['bound_by'],
       'library_ms': None,
   } for kind, line in (('velocity', 528), ('substep', 603))]
+  # phase 17's paths, each counted from 0: the bench lines and the mesh
+  # collection (the main path's count stays `launches`)
+  paths = {f'bench_{k}': v['launches'] for k, v in entry['bench'].items()}
+  paths['mesh_collect'] = entry['collect']['mesh']['launches']
+  for row in kernels:
+    row['launches_entry'] = {p: c[row['name']] for p, c in paths.items()}
   if args.out:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(dict(
@@ -3322,7 +3688,8 @@ def main():
         mega=meg,
         reference=ref, solver=sol, main=main_run, per_step=step_run,
         solver_path=sol_path, vec_env=vec, world_model=wm, evaluation=ev,
-        video_models=vm, learned_env=lenv, rl=rl, viz=viz, kernels=kernels,
+        video_models=vm, learned_env=lenv, rl=rl, viz=viz, entry=entry,
+        kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)

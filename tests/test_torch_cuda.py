@@ -426,3 +426,43 @@ def test_native_codec_builds_and_round_trips(cuda_device):
   assert native.build().exists()
   frames = np.random.default_rng(0).random((3, 10, 16, 32)) > 0.6
   assert (native.unpack_frames(native.pack_frames(frames)) == frames).all()
+
+
+def _bench_chunks(dev, kind, T=2, B=1024):
+  """bench.py's `kind` chunk and its jnp chunk from the same states and
+  actions: (kind's (states, consumed), jnp's, the launches kind made)."""
+  from boxlcd_tpu_torch import bench
+  env = bench.make_env('Urchin', 8, 4, dev)
+  gen = torch.Generator(device=dev).manual_seed(4)
+  st = Env.reset(env, gen, B)
+  acts = torch.rand((T, B, env.act_size), generator=gen, device=dev) * 2 - 1
+  torch.cuda.synchronize()
+  before = (mega.LAUNCHES, traj_raster.LAUNCHES, cuda_raster.LAUNCHES,
+            cuda_solver.LAUNCHES['substep'])
+  got = bench.make_chunk(env, kind, T)(st, acts)
+  torch.cuda.synchronize()
+  after = (mega.LAUNCHES, traj_raster.LAUNCHES, cuda_raster.LAUNCHES,
+           cuda_solver.LAUNCHES['substep'])
+  want = bench.make_chunk(env, 'jnp', T)(st, acts)
+  return got, want, [a - b for a, b in zip(after, before)], env
+
+
+def test_bench_mega_chunk_against_jnp(cuda_device):
+  """The megakernel + trajectory raster chunk: one launch of each; its
+  consumed sum within 1e-3 of the plain step's (the megakernel holds
+  tests/test_mega.py's bounds, not bits), its poses within 1e-4."""
+  (st, s), (st_j, s_j), launches, _ = _bench_chunks(cuda_device, 'mega')
+  assert launches == [1, 1, 0, 0]
+  assert abs(float(s) - float(s_j)) <= 1e-3 * abs(float(s_j))
+  assert float((st.c - st_j.c).abs().max()) < 1e-4
+
+
+def test_bench_sub_chunk_equals_jnp(cuda_device):
+  """The substep-kernel chunk equals the plain step's bit for bit (the
+  kernel is bit-equal to the plain solves), with substeps x T solver
+  launches and one lcd raster launch a step."""
+  (st, s), (st_j, s_j), launches, env = _bench_chunks(cuda_device, 'sub')
+  assert launches == [0, 0, 2, 2 * env.spec.substeps]
+  assert float(s) == float(s_j)
+  for f in st._fields:
+    assert torch.equal(getattr(st, f), getattr(st_j, f)), f

@@ -14,7 +14,9 @@ fast physics (2/1 solver iterations):
   epoch, the learned test env);
 - `rl.main sac`: `run` (real env, cnn: the replay buffer and one
   update_every burst) and `run_firehose` (the learned env, mlp);
-- `--mesh` raises (sharding is not ported).
+- `--mesh` raises JAX's assertions where JAX's does: a mesh that is not
+  data-parallel, and a num_envs that does not divide over its devices (the
+  sharded epochs themselves: tests/test_torch_mesh.py).
 """
 import json
 import pickle
@@ -229,5 +231,8 @@ def test_sac_run_and_firehose(tmp_path, writer, fbt_dir):
 
 
 def test_mesh_raises(tmp_path):
-  with pytest.raises(NotImplementedError):
-    tmain.main([*RL, f'--logdir={tmp_path}', '--mesh=dp2', 'ppo'])
+  with pytest.raises(AssertionError, match="unsupported mesh 'tp2'"):
+    tmain.main([*RL, f'--logdir={tmp_path}', '--mesh=tp2', 'ppo'])
+  with pytest.raises(AssertionError,
+                     match='num_envs 4 must divide over 3 devices'):
+    tmain.main([*RL, f'--logdir={tmp_path}', '--mesh=dp3', 'ppo'])
