@@ -98,16 +98,12 @@ def make_chunk(env, solver_kind, T):
               and bool(int(os.environ.get('BENCH_TRAJ_RASTER', '1'))))
     trender = (traj_raster.make_traj_render(spec, env.lcd_w, env.lcd_h)
                if use_tr else None)
-    n = spec.n
 
     def chunk(states, actions):
-      B = states.c.shape[0]
       ms = physics.motor_speeds(spec, actions).contiguous()
       states, traj = rollout(states, ms)
       poses = traj['stream']                                  # (T, n, 3, B)
-      cs = poses[:, :, :2].permute(0, 3, 1, 2).reshape(T * B, n, 2)
-      as_ = poses[:, :, 2].permute(0, 2, 1).reshape(T * B, n)
-      ic = states.is_circle[None].expand(T, B, n).reshape(T * B, n)
+      ic, cs, as_ = mega.flat_poses(poses, states.is_circle)
       if trender is not None:
         lcd = raster.unpack_rows(trender.rows(poses, states.is_circle),
                                  env.lcd_w)

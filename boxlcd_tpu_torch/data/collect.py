@@ -122,7 +122,7 @@ def make_mega_rollout_fn(env, pack_lcd=False):
   (B, T, act) tensor."""
   spec = env.spec
   T = int(env.G.ep_len)
-  n, W, H = spec.n, env.lcd_w, env.lcd_h
+  W, H = env.lcd_w, env.lcd_h
   pack_lcd = pack_lcd and W % 8 == 0
   rollout = mega.make_rollout(spec, T)
   use_tr = (traj_raster.supports(spec) and W <= 32
@@ -138,9 +138,7 @@ def make_mega_rollout_fn(env, pack_lcd=False):
                        states.a.T[:, None]], 1)[None]          # (1, n, 3, B)
     _, traj = rollout(states, ms)
     poses = torch.cat([pose0, traj['stream']])[:T]             # (T, n, 3, B)
-    cs = poses[:, :, :2].permute(0, 3, 1, 2).reshape(T * B, n, 2)
-    as_ = poses[:, :, 2].permute(0, 2, 1).reshape(T * B, n)
-    ic = states.is_circle[None].expand(T, B, n).reshape(T * B, n)
+    ic, cs, as_ = mega.flat_poses(poses, states.is_circle)
     if use_tr:
       rows = trender.rows(poses, states.is_circle)               # (T, B, H)
       obs = env.observe_pose(ic, cs, as_, lcd=False)

@@ -228,6 +228,16 @@ def _lib():
   return fn
 
 
+def flat_poses(stream, is_circle):
+  """A (T, N, 3, B) pose stream as T * B frames, time major: (is_circle
+  (T*B, N), c (T*B, N, 2), a (T*B, N)), the inputs of Env.observe_pose."""
+  T, n, _, B = stream.shape
+  c = stream[:, :, :2].permute(0, 3, 1, 2).reshape(T * B, n, 2)
+  a = stream[:, :, 2].permute(0, 2, 1).reshape(T * B, n)
+  ic = is_circle[None].expand(T, B, n).reshape(T * B, n)
+  return ic, c, a
+
+
 def _traj(stream):
   """Pose views of a (T, N, 3, B) stream: c (T, B, N, 2), a (T, B, N)."""
   v = stream.permute(0, 3, 1, 2)

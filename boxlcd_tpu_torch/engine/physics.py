@@ -717,8 +717,11 @@ def velocity_solve(spec: WorldSpec, b: SolveBundle) -> SolveBundle:
 
 
 def _position_solve(spec: WorldSpec, st: WorldState, b: SolveBundle,
-                    aux: PostAux):
-  """Steps 7-8: integrate positions + NGS corrections. Returns (c, a).
+                    aux: PostAux, record_done=False):
+  """Steps 7-8: integrate positions + NGS corrections. Returns (c, a); with
+  record_done, (c, a, dones) where dones (B, pos_iters) is each world's
+  Box2D exit flag after each iteration (research/scripts/exit_probe.py),
+  and every iteration runs.
 
   b2Island::Solve EXITS the position loop once the iteration's contact
   minSeparation >= -3*linearSlop AND every joint reports
@@ -739,6 +742,7 @@ def _position_solve(spec: WorldSpec, st: WorldState, b: SolveBundle,
   c = st.c + dt * b.v
   a = st.a + dt * b.w
   done = torch.zeros(c.shape[0], dtype=torch.bool, device=c.device)
+  dones = []
 
   # ---- 8. position iterations (NGS) ---------------------------------------------
   # Box2D island order per position iteration: contacts first (walls then
@@ -868,8 +872,12 @@ def _position_solve(spec: WorldSpec, st: WorldState, b: SolveBundle,
     c = _sel(done, c0, c)
     a = _sel(done, a0, a)
     done = done | okay
-    if early_exit and bool(done.all()):
+    if record_done:
+      dones.append(done)
+    elif early_exit and bool(done.all()):
       break
+  if record_done:
+    return c, a, torch.stack(dones, 1)
   return c, a
 
 

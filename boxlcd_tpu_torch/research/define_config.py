@@ -61,7 +61,7 @@ def config():
   G.train_barrels = -1
   G.test_barrels = 1
   G.barrel_format = 'npz'  # 'npz' (reference layout) | 'native' (bit-packed)
-  G.profile = 0  # the JAX trace of the first ~50 iters; not ported: raises
+  G.profile = 0  # Trainer: a torch.profiler trace of the first ~50 iters
   # device_dataset=1: train steps between host reads (step count, log);
   # 1 means min(100, total_itr)
   G.steps_per_dispatch = 1

@@ -143,6 +143,19 @@ def write_gif(path, frames, fps=10, upscale=8):
   return str(path)
 
 
+def write_image(path, img):
+  """(H, W, 3) float [0, 1] -> a PNG; the image as `<path>.npz` where Pillow
+  is not installed (write_gif's fallback). Returns the path written."""
+  img = (255 * np.clip(np.asarray(img, np.float32), 0, 1)).astype(np.uint8)
+  try:
+    from PIL import Image
+  except ImportError:
+    np.savez_compressed(str(path) + '.npz', image=img)
+    return str(path) + '.npz'
+  Image.fromarray(img).save(str(path))
+  return str(path)
+
+
 def add_video(writer, tag, video, itr, fps=10):
   """Log (T,H,W), (B,T,H,W) gray or (B,T,3,H,W) RGB video to TB
   (reference: utils.py:203-247)."""

@@ -162,7 +162,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      worlds, 8/4, T = 100, K = 4, 3 iterations: megakernel 13 + 3 for
      mega_smoke, traj raster 13), the sub and jnp lines at BENCH_STEPS=2,
      BENCH_PIPELINE=1, 1 iteration (substep kernel 12, lcd raster 4; lcd
-     raster 4), each line's env-steps/s, launches counted from 0.
+     raster 4), each line's env-steps/s, launches counted from 0;
+  18. research tools and measurement scripts, on phase 12's data, BVAE and
+     FBT, phase 14's FIT and phase 15's dream PPO checkpoint, each tool
+     timed with its launches counted from 0: bench_bisect at its defaults
+     (Urchin, 4096 worlds x 50 steps, 8/4; megakernel 24, traj raster 12,
+     lcd raster 4: six stages of a warm-up and 3 timed calls); roofline at
+     bench_bisect's +full_state rate and at phase 17's auto line;
+     exit_probe at Urchin 180/60, 64 worlds, 1 step; the probes' real batch
+     (fit_diag.rollout_batch: megakernel 1, traj raster 1) against its
+     plain route at 64 x 5 (per-world poses within tests/test_mega.py's
+     Urchin bounds, frames bit for bit where the poses agree within 1e-5);
+     benchmark_e2e at its scaled default in a temp folder; model_probe (64
+     x 25) over the FBT, fit_diag (B 16) over the FIT and FBT, dream_diag
+     (1 epoch of 375 dream steps) over the ppo_lenv checkpoint;
+     research.main --mode=train --profile=1 of the BVAE for 5 steps, its
+     Chrome trace holding CUDA kernel events.
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -200,7 +215,6 @@ from boxlcd_tpu_torch.data.device_dataset import (
     DeviceDataset, make_device_trainer)
 from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.engine import spec as engine_spec
-from boxlcd_tpu_torch.engine.spec import CIRCLE
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.examples import basic as ex_basic
 from boxlcd_tpu_torch.examples import collect as ex_collect
@@ -224,7 +238,13 @@ from boxlcd_tpu_torch.research.rl._base import RLAlgo
 from boxlcd_tpu_torch.research.rl.ppo import PPO, adam, pool_size
 from boxlcd_tpu_torch.research.rl.sac import SAC
 from boxlcd_tpu_torch.research.scripts import (
-    demo_gifs, eval_policy, lcd_wave, sample_model, viz_goal)
+    bench_bisect, benchmark_e2e, dream_diag, demo_gifs, eval_policy,
+    exit_probe, fit_diag, lcd_wave, model_probe, roofline, sample_model,
+    viz_goal)
+# one count of the megakernel's operations and the H100's peaks serve the
+# roofline script and the bounds here
+from boxlcd_tpu_torch.research.scripts.roofline import (
+    FP32_FLOPS, HBM_BYTES_PER_S, mega_bound)
 from boxlcd_tpu_torch.research.wrappers import (
     CubeGoalEnv, LearnedEnv, PreprocVecEnv, RewardLenv, VecEnv)
 from boxlcd_tpu_torch.utils import AttrDict, set_tf32
@@ -303,8 +323,6 @@ EV_LOC_BARRELS = {'train': 1, 'test': 1}
 EV_EVAL_N, EV_REPS = 512, 5                # G.eval_n 2048, cut; the reps
 EV_CPU_BATCH = 16                          # the card-vs-CPU batch, episodes
 EV_FBT = ['--window=50', '--prompt_n=3']   # phase 12's FBT
-HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
-FP32_FLOPS = 67e12                          # H100 SXM, outside the tensor cores
 
 
 def log(*args):
@@ -605,51 +623,6 @@ def traj_bound(spec, is_circle, T, height, consts):
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = T * raster_flops(spec, is_circle, height) / FP32_FLOPS * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-
-
-def mega_flops_per_substep(spec, contacts):
-  """Float operations of one world-substep of the megakernel, counted from
-  csrc/physics_stages.cuh (adds, multiplies, divides, square roots; cosf and
-  sinf as one each). V_i: polygon vertices of body i (0 for circles); C:
-  touching contact points per world; vi, pi: velocity and position
-  iterations; jn joints, P valid pairs, nw walls, R label rounds:
-    sum_i (7 + 14 V_i)                 integrate, cos/sin, world polygon
-  + nw * sum_i (5 V_i + 12)            wall narrowphase
-  + sum_pairs (8 V_a V_b + 120)        pair narrowphase (SAT, clip, init)
-  + C (45 + 45 vi + 35 pi)             contact init + warm start, sweeps, NGS
-  + jn (60 + 87 vi + 55 pi)            joint init + warm start, sweeps, NGS
-  + 10 n + 2 R (jn + P)                sleeping
-  with pi = 1: the per-world NGS exit is not observed, so the count takes
-  the fewest iterations the exit allows."""
-  V = [0 if int(k) == CIRCLE else int(v)
-       for k, v in zip(spec.shape_static, spec.nverts)]
-  nw = len(spec.wall_offset)
-  pairs = [(int(a), int(b)) for a, b, ok in
-           zip(spec.pair_a, spec.pair_b, spec.pair_valid) if ok]
-  rounds = max(1, int(np.ceil(np.log2(max(spec.n, 2))))) + 1
-  vi, pi = spec.vel_iters, 1
-  return (sum(7 + 14 * v for v in V) + nw * sum(5 * v + 12 for v in V)
-          + sum(8 * V[a] * V[b] + 120 for a, b in pairs)
-          + contacts * (45 + 45 * vi + 35 * pi)
-          + spec.jn * (60 + 87 * vi + 55 * pi)
-          + 10 * spec.n + 2 * rounds * (spec.jn + len(pairs)))
-
-
-def mega_bound(spec, final, B, T):
-  """Least time of one megakernel call: (bound ms, 'bytes' | 'operations',
-  flops). Operations: mega_flops_per_substep with C the contact points
-  touching in the final state (this run's data), x substeps x T x B.
-  Bytes: the WorldState read and written once, the (T, B, J) motor speeds
-  read once, the (T, N, 3, B) pose stream written once."""
-  contacts = float(((final.wc_id >= 0).sum() + (final.pc_id >= 0).sum()) / B)
-  flops = (mega_flops_per_substep(spec, contacts) * spec.substeps * T * B)
-  state = sum(getattr(final, f).numel() * getattr(final, f).element_size()
-              for f in physics.WorldState._fields)
-  nbytes = 2 * state + T * B * len(spec.j_parent) * 4 + T * spec.n * 3 * B * 4
-  t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-  t_ops = flops / FP32_FLOPS * 1e3
-  by = (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-  return (*by, flops)
 
 
 def once_ms(fn):
@@ -1061,7 +1034,7 @@ def main_path_phase(dev, smi):
   rollout = mega.make_rollout(env.spec, T)
   render = traj_raster.make_traj_render(env.spec, env.lcd_w, env.lcd_h)
   _, traj = rollout.kernel_rollout(st, ms)
-  n, B, W, H = env.spec.n, MAIN_BATCH, env.lcd_w, env.lcd_h
+  W = env.lcd_w
   pose0 = torch.cat([st.c.permute(1, 2, 0), st.a.T[:, None]], 1)[None]
 
   def concat():
@@ -1070,9 +1043,7 @@ def main_path_phase(dev, smi):
 
   poses, cosa, sina = concat()
   rows = render.kernel_rows(poses, cosa, sina, st.is_circle)
-  cs = poses[:, :, :2].permute(0, 3, 1, 2).reshape(T * B, n, 2)
-  as_ = poses[:, :, 2].permute(0, 2, 1).reshape(T * B, n)
-  ic = st.is_circle[None].expand(T, B, n).reshape(T * B, n)
+  ic, cs, as_ = mega.flat_poses(poses, st.is_circle)
   fn, _ = make_mega_rollout_fn(env, pack_lcd=True)
   out = fn.core(st, acts)
 
@@ -3585,6 +3556,171 @@ def entry_points_phase(dev, smi, tmp):
   out['bench'] = _entry_bench(smi)
   return out
 
+# phase 18, the research tools and the measurement scripts: on phase 12's
+# data, BVAE and FBT, phase 14's FIT and phase 15's dream PPO checkpoint
+TOOLS_PROBE = ['--probe_B=64', '--probe_T=25']   # model_probe's defaults
+TOOLS_FIT_B = 16                                 # fit_diag's default
+TOOLS_EXIT = ['Urchin', '64', '1']    # at 180/60; T = 1 of its 20
+TOOLS_GATE_B, TOOLS_GATE_T = 64, 5     # the probes' card batch vs plain
+TOOLS_AGREE = 1e-5      # poses this close give the same frames
+TOOLS_PROFILE_STEPS = 5
+
+
+def _tool(label, fn, *args):
+  """Run one tool with every launch count set to 0 just before; returns
+  (its result, seconds, launches)."""
+  _zero_launches()
+  t0 = time.perf_counter()
+  out = fn(*args)
+  torch.cuda.synchronize()
+  sec = time.perf_counter() - t0
+  launches = _launches()
+  log(f'[tools] {label}: {sec:.1f} s; launches {launches}')
+  return out, sec, launches
+
+
+def _probe_gate(dev):
+  """fit_diag.rollout_batch on the card (megakernel + traj raster) against
+  its plain route from the same states and actions: per-world pose errors
+  within tests/test_mega.py's Urchin bounds, the first step's poses within
+  1e-4, frames bit for bit wherever a (world, step)'s poses agree within
+  TOOLS_AGREE."""
+  env = _env('Urchin', dev, **ITERS)
+  gen = torch.Generator(device=dev).manual_seed(5)
+  B, T = TOOLS_GATE_B, TOOLS_GATE_T
+  states = Env.reset(env, gen, B)
+  acts = torch.rand((B, T, env.act_size), generator=gen, device=dev) * 2 - 1
+  _zero_launches()
+  card = fit_diag.rollout_batch(env, states, acts, plain=False)
+  torch.cuda.synchronize()
+  launches = _launches()
+  plain = fit_diag.rollout_batch(env, states, acts, plain=True)
+  med_b, tail_at, tail_frac, _ = MEGA_BOUNDS['Urchin']
+  failures, msg = [], []
+  for k in ('c', 'a'):
+    err = (card[k] - plain[k]).abs().reshape(B, -1).max(1).values
+    med, tail = float(err.median()), float((err > tail_at).float().mean())
+    msg.append(f'{k} {med:.1e}/{tail:.3f}')
+    if med >= med_b or tail >= tail_frac:
+      failures.append(f'{k}: median {med:.2e}, tail {tail:.3f}')
+  first = max(float((card[k][:, 0] - plain[k][:, 0]).abs().max())
+              for k in ('c', 'a'))
+  pose = torch.maximum((card['c'] - plain['c']).abs().flatten(2).max(-1)
+                       .values, (card['a'] - plain['a']).abs().max(-1).values)
+  agree = pose <= TOOLS_AGREE                                    # (B, T)
+  diff = (card['lcd'] != plain['lcd']).flatten(2).any(-1)
+  mism = int((diff & agree).sum())
+  pro = float((card['proprio'] - plain['proprio']).abs().max())
+  if first >= 1e-4:
+    failures.append(f'poses after the first step differ by {first:.2e}')
+  if mism or float(agree.float().mean()) < 0.5:
+    failures.append(f'{mism} frames differ where the poses agree '
+                    f'({float(agree.float().mean()):.3f} agree)')
+  if launches != _expect(mega_rollout=1, traj_raster=1):
+    failures.append(f'launches {launches}')
+  log(f'[tools] probes\' real batch, card vs plain, Urchin {B} x {T}: '
+      f'median/tail per world {", ".join(msg)}; first step {first:.2e}; '
+      f'{float(agree.float().mean()):.3f} of frames with agreeing poses, '
+      f'{mism} of them differ; proprio max err {pro:.2e}; launches '
+      f'{launches}')
+  if failures:
+    raise RuntimeError(f'probe real batch: {failures}')
+  return dict(first_step=first, agree=float(agree.float().mean()),
+              mismatches=mism, proprio=pro, launches=launches)
+
+
+def _profile_trace(tmp):
+  """research.main --mode=train --profile=1 of phase 12's BVAE: a Chrome
+  trace in the logdir holding CUDA kernel events."""
+  logdir = tmp / 'profile'
+  _wm_train([f'--datadir={tmp / "data"}', f'--logdir={logdir}',
+             '--model=BVAE', '--profile=1',
+             f'--total_itr={TOOLS_PROFILE_STEPS}',
+             f'--log_n={TOOLS_PROFILE_STEPS}', *WM_COMMON, *WM_BVAE])
+  traces = sorted(logdir.glob('trace_*.json'))
+  if not traces:
+    raise RuntimeError(f'--profile=1 wrote no trace into {logdir}')
+  events = json.loads(traces[0].read_text()).get('traceEvents', [])
+  kernels = [e for e in events if e.get('cat') == 'kernel']
+  log(f'[tools] --profile=1: {traces[0].name}, {len(events)} events, '
+      f'{len(kernels)} CUDA kernel events')
+  if not kernels:
+    raise RuntimeError(f'{traces[0]}: no CUDA kernel events')
+  return dict(trace=traces[0].name, events=len(events),
+              kernel_events=len(kernels))
+
+
+def tools_phase(dev, smi, tmp, entry=None):
+  """The research tools and measurement scripts on the card (phase 18);
+  reuses phase 12's data, BVAE and FBT, phase 14's FIT and phase 15's
+  ppo_lenv checkpoint (`tmp`), and phase 17's bench auto line (`entry`)
+  where it ran."""
+  set_tf32(False)
+  out = {}
+  saved_writer = research_utils.make_writer
+  research_utils.make_writer = lambda logdir: research_utils.NullWriter()
+  try:
+    bis, sec, launches = _tool('bench_bisect (Urchin 4096 x 50, 8/4)',
+                               bench_bisect.main, [])
+    want = _expect(mega_rollout=24, traj_raster=12, lcd_raster=4)
+    if launches != want:          # 6 stages x (warm + 3), 3 of them
+      raise RuntimeError(f'bench_bisect launches {launches}, not {want}')
+    out['bisect'] = dict(stages=bis, s=sec, launches=launches)
+    rate = bis['+full_state']['msteps_per_s'] * 1e6
+    lines = [('bench_bisect +full_state', str(rate), 50)]
+    if entry is not None:
+      lines.append(('bench auto line', json.dumps(entry['bench']['auto']
+                                                  ['rec']), 100))
+    out['roofline'] = {}
+    for label, arg, T in lines:
+      r, sec, _ = _tool(f'roofline at the {label} rate', roofline.main,
+                        ['--env=Urchin', '--iters=8,4', f'--T={T}',
+                         f'--steps_per_sec={arg}'])
+      out['roofline'][label] = dict(r, s=sec)
+    r, sec, _ = _tool('exit_probe (Urchin 180/60, 64 worlds, 1 step)',
+                      exit_probe.main, TOOLS_EXIT)
+    out['exit_probe'] = dict(r, s=sec)
+    out['probe_gate'] = _probe_gate(dev)
+    with tempfile.TemporaryDirectory() as work:
+      r, sec, launches = _tool('benchmark_e2e (scaled default)',
+                               benchmark_e2e.main, ['--workdir', work])
+    if not r['under_one_hour'] or r['device'] != 'cuda' or r['card'] != smi:
+      raise RuntimeError(f'benchmark_e2e: {r}')
+    out['e2e'] = dict(r, s=sec, launches=launches)
+    r, sec, launches = _tool(
+        'model_probe (64 x 25)', model_probe.main,
+        ['ppo', '--env=Urchin', '--vel_iters=8', '--pos_iters=4',
+         f'--weightdir={tmp / "fbt"}', *TOOLS_PROBE])
+    if launches != _expect(mega_rollout=1, traj_raster=1) or not all(
+        np.isfinite(r[k]).all() for k in ('decode_rms', 'onestep_rms',
+                                          'sensitivity')):
+      raise RuntimeError(f'model_probe: launches {launches}, {r}')
+    out['model_probe'] = dict(
+        decode_bidx_rms=r['decode_bidx_rms'],
+        onestep_mad=float(r['onestep_mad'].mean()),
+        sensitivity_bidx=r['sensitivity_bidx'], s=sec, launches=launches)
+    r, sec, launches = _tool(
+        f'fit_diag (B {TOOLS_FIT_B})', fit_diag.main,
+        ['--env=Urchin', f'--fitdir={tmp / "FIT"}',
+         f'--fbtdir={tmp / "fbt"}', f'--B={TOOLS_FIT_B}',
+         f'--outdir={tmp / "figs"}'])
+    if launches['mega_rollout'] != 1 or not Path(r['strip']).exists():
+      raise RuntimeError(f'fit_diag: launches {launches}, {r}')
+    out['fit_diag'] = dict(r, s=sec, launches=launches)
+    rate, sec, launches = _tool(
+        'dream_diag (1 epoch of 375 dream steps)', dream_diag.main,
+        ['ppo', f'--logdir={tmp / "ppo_lenv"}', f'--weightdir={tmp / "fbt"}',
+         *RL_COMMON, '--steps_per_epoch=48000', '--diag_epochs=1'])
+    if not 0.0 <= rate <= 1.0 or launches['lcd_raster'] < 1:
+      raise RuntimeError(f'dream_diag: rate {rate}, launches {launches}')
+    out['dream_diag'] = dict(rate=rate, s=sec, launches=launches)
+  finally:
+    research_utils.make_writer = saved_writer
+  r, sec, _ = _tool('research.main --profile=1 (BVAE, 5 steps)',
+                    _profile_trace, tmp)
+  out['profile'] = dict(r, s=sec)
+  return out
+
 
 def main():
   ap = argparse.ArgumentParser()
@@ -3634,6 +3770,7 @@ def main():
     rl = run('rl', rl_phase, dev, smi, Path(tmp))
     viz = run('viz', viz_phase, dev, smi, Path(tmp))
     entry = run('entry', entry_points_phase, dev, smi, Path(tmp))
+    tools = run('tools', tools_phase, dev, smi, Path(tmp), entry)
   if only:
     log(f'[done] phases {sorted(phase_s)} in {time.time() - t_start:.1f} s '
         f'(a rehearsal: no result line)')
@@ -3678,8 +3815,12 @@ def main():
   # collection (the main path's count stays `launches`)
   paths = {f'bench_{k}': v['launches'] for k, v in entry['bench'].items()}
   paths['mesh_collect'] = entry['collect']['mesh']['launches']
+  # phase 18's tools, each counted from 0
+  tpaths = {k: tools[k]['launches'] for k in (
+      'bisect', 'probe_gate', 'e2e', 'model_probe', 'fit_diag', 'dream_diag')}
   for row in kernels:
     row['launches_entry'] = {p: c[row['name']] for p, c in paths.items()}
+    row['launches_tools'] = {p: c[row['name']] for p, c in tpaths.items()}
   if args.out:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(dict(
@@ -3689,7 +3830,7 @@ def main():
         reference=ref, solver=sol, main=main_run, per_step=step_run,
         solver_path=sol_path, vec_env=vec, world_model=wm, evaluation=ev,
         video_models=vm, learned_env=lenv, rl=rl, viz=viz, entry=entry,
-        kernels=kernels,
+        tools=tools, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)
