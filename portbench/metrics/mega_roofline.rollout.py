@@ -1,0 +1,2 @@
+"""`mega_roofline.rollout`: see portbench/metrics/_read.py's `mega_roofline`."""
+from portbench.metrics._read import mega_roofline as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""`mfu.rollout`: see portbench/metrics/_read.py's `mfu`."""
+from portbench.metrics._read import mfu as read  # noqa: F401
