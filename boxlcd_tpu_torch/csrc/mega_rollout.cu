@@ -153,9 +153,13 @@ __device__ void store_state(const Group<G>& g, const Ptrs& P, const SpecI& I,
   }
 }
 
-template <unsigned G>
-__global__ void __launch_bounds__(MAX_THREADS)
-mega_rollout_kernel(Ptrs P, long B, int T, int wpb) {
+// One world's T steps on its group. COUNT (the counted instance) keeps the
+// NGS iterations the world ran in a register and adds them and its substeps
+// to its row of `counts` (B, 2) once, at the end; the uncounted instance
+// has no counting code.
+template <unsigned G, bool COUNT>
+__device__ __forceinline__ void rollout(const Ptrs& P, long B, int T, int wpb,
+                                        long long* counts) {
   __shared__ SpecF F;
   __shared__ SpecI I;
   extern __shared__ float4 smem[];
@@ -185,6 +189,7 @@ mega_rollout_kernel(Ptrs P, long B, int T, int wpb) {
     if (j < nj) W.jc[j].ms = P.motor_speed[wd * nj + j];
   }
   g.sync();
+  int ngs = 0;
   for (int t = 0; t < T; ++t) {
     if (t + 1 < T) {
 #pragma unroll
@@ -193,7 +198,7 @@ mega_rollout_kernel(Ptrs P, long B, int T, int wpb) {
         if (j < nj) next[q] = P.motor_speed[((long)(t + 1) * B + wd) * nj + j];
       }
     }
-    step(g, F, I, W, o, wc);
+    ngs += step(g, F, I, W, o, wc);
     if (lane < n) {
       float* out = P.stream + (long)t * n * 3 * B + wd;
       out[(3 * lane) * B] = W.sx(lane);
@@ -210,31 +215,65 @@ mega_rollout_kernel(Ptrs P, long B, int T, int wpb) {
     g.sync();
   }
   store_state(g, P, I, wd, W, o, wc);
+  if constexpr (COUNT) {
+    if (lane == 0) {
+      counts[2 * wd] += ngs;
+      counts[2 * wd + 1] += (long long)T * I.substeps;
+    }
+  }
+}
+
+template <unsigned G>
+__global__ void __launch_bounds__(MAX_THREADS)
+mega_rollout_kernel(Ptrs P, long B, int T, int wpb) {
+  rollout<G, false>(P, B, T, wpb, nullptr);
+}
+
+template <unsigned G>
+__global__ void __launch_bounds__(MAX_THREADS)
+mega_rollout_counted_kernel(Ptrs P, long B, int T, int wpb,
+                            long long* counts) {
+  rollout<G, true>(P, B, T, wpb, counts);
 }
 
 // Let the kernel take `shared` bytes of dynamic shared memory: beyond 48 KB
 // less its static shared memory (the tables) a launch is refused unless the
 // attribute was raised first. Raised once per instantiation, to the largest
 // size asked so far.
-template <unsigned G>
-cudaError_t allow_shared(int shared) {
-  static int allowed = 0;
+template <typename K>
+cudaError_t allow_shared(K kern, int& allowed, int shared) {
   if (shared <= allowed) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
-      mega_rollout_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      shared);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
   if (e == cudaSuccess) allowed = shared;
   return e;
 }
 
 template <unsigned G>
+cudaError_t allow_shared(int shared) {
+  static int allowed = 0;
+  return allow_shared(mega_rollout_kernel<G>, allowed, shared);
+}
+
+template <unsigned G>
+cudaError_t allow_shared_counted(int shared) {
+  static int allowed = 0;
+  return allow_shared(mega_rollout_counted_kernel<G>, allowed, shared);
+}
+
+template <unsigned G>
 int launch_g(const Ptrs& P, long B, int T, int wpb, int shared,
-             cudaStream_t stream) {
-  auto kern = mega_rollout_kernel<G>;
-  const cudaError_t e = allow_shared<G>(shared);
-  if (e != cudaSuccess) return (int)e;
+             long long* counts, cudaStream_t stream) {
   const long blocks = (B + wpb - 1) / wpb;
-  kern<<<(unsigned)blocks, G * wpb, shared, stream>>>(P, B, T, wpb);
+  const cudaError_t e = counts ? allow_shared_counted<G>(shared)
+                               : allow_shared<G>(shared);
+  if (e != cudaSuccess) return (int)e;
+  if (counts)
+    mega_rollout_counted_kernel<G><<<(unsigned)blocks, G * wpb, shared,
+                                     stream>>>(P, B, T, wpb, counts);
+  else
+    mega_rollout_kernel<G><<<(unsigned)blocks, G * wpb, shared, stream>>>(
+        P, B, T, wpb);
   return (int)cudaGetLastError();
 }
 
@@ -267,21 +306,24 @@ extern "C" void mega_table_sizes(int* nf, int* ni) {
 
 // ptrs: the 20 device pointers of Ptrs, in its order; the geometry from
 // engine/mega.py's launch_geometry (group size G, worlds a block, the spec's
-// pair and joint slots, dynamic shared bytes).
+// pair and joint slots, dynamic shared bytes); counts: NULL for the
+// uncounted instance, else a (B, 2) int64 device buffer the counted
+// instance adds each world's NGS iterations and substeps into.
 extern "C" int mega_rollout_launch(void* const* ptrs, long B, int T, int G,
                                    int wpb, int np, int nj, int shared,
-                                   void* stream) {
+                                   void* counts, void* stream) {
   if (B <= 0 || T <= 0 || !geometry_ok(G, wpb, np, nj, shared))
     return (int)cudaErrorInvalidValue;
   Ptrs P;
   static_assert(sizeof(Ptrs) == 20 * sizeof(void*), "Ptrs holds 20 pointers");
   memcpy(&P, ptrs, sizeof(Ptrs));
   cudaStream_t s = (cudaStream_t)stream;
+  long long* c = (long long*)counts;
   switch (G) {
-    case 4: return launch_g<4>(P, B, T, wpb, shared, s);
-    case 8: return launch_g<8>(P, B, T, wpb, shared, s);
-    case 16: return launch_g<16>(P, B, T, wpb, shared, s);
-    default: return launch_g<32>(P, B, T, wpb, shared, s);
+    case 4: return launch_g<4>(P, B, T, wpb, shared, c, s);
+    case 8: return launch_g<8>(P, B, T, wpb, shared, c, s);
+    case 16: return launch_g<16>(P, B, T, wpb, shared, c, s);
+    default: return launch_g<32>(P, B, T, wpb, shared, c, s);
   }
 }
 

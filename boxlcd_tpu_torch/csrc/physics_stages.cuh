@@ -1109,10 +1109,12 @@ PHYS_FN void velocity_solve(const Group<G>& g, const SpecF& F, const SpecI& I,
 // then joints, limit then point, on lane 0). The loop stops after the first
 // iteration that meets b2Island::Solve's exit (contact separation >= -3 *
 // linearSlop and every joint within its slops; a min and an any over the
-// group); that iteration's corrections are kept.
+// group); that iteration's corrections are kept. Returns the iterations
+// run, the same on every lane (mega_rollout.cu's counted instance adds them
+// up; elsewhere the count is dead code).
 template <unsigned G>
-PHYS_FN void position_solve(const Group<G>& g, const SpecF& F, const SpecI& I,
-                            const World<G>& W, const WallC (&wc)[MW]) {
+PHYS_FN int position_solve(const Group<G>& g, const SpecF& F, const SpecI& I,
+                           const World<G>& W, const WallC (&wc)[MW]) {
   const int i = g.thread_rank();
   const float dt = F.dt;
   if (i < I.n) {
@@ -1120,7 +1122,9 @@ PHYS_FN void position_solve(const Group<G>& g, const SpecF& F, const SpecI& I,
     W.cy(i) = W.sy(i) + dt * W.vy(i);
     W.a(i) = W.sa(i) + dt * W.w(i);
   }
+  int ran = 0;
   for (int it = 0; it < I.pos_iters; ++it) {
+    ++ran;
     float minsep = 0.0f;
     if (i < I.n) {
       float cx = W.cx(i), cy = W.cy(i), ca = W.a(i);
@@ -1262,6 +1266,7 @@ PHYS_FN void position_solve(const Group<G>& g, const SpecF& F, const SpecI& I,
     minsep = group_min(g, minsep);
     if (minsep >= MIN_SEP_OK && !g.any(jbad)) break;
   }
+  return ran;
 }
 
 // Steps 9-10 (_finalize): island sleeping (min-label propagation over joints
@@ -1348,25 +1353,27 @@ PHYS_FN void finalize(const Group<G>& g, const SpecF& F, const SpecI& I,
 
 // One env step (step_world_motor): substeps x the whole pipeline at the
 // motor speeds in the joint records' ms. W.im/ii/lcx/lcy must hold
-// body_constants.
+// body_constants. Returns the NGS iterations of its substeps.
 template <unsigned G>
-PHYS_FN void step(const Group<G>& g, const SpecF& F, const SpecI& I,
-                  const World<G>& W, Own& o, WallC (&wc)[MW]) {
+PHYS_FN int step(const Group<G>& g, const SpecF& F, const SpecI& I,
+                 const World<G>& W, Own& o, WallC (&wc)[MW]) {
   const int i = g.thread_rank();
   for (int j = i; j < I.nj; j += G) {
     JointC& J = W.jc[j];
     J.mchg = J.ms != J.prev_motor && I.j_valid[j];
   }
   g.sync();
+  int ngs = 0;
   for (int s = 0; s < I.substeps; ++s) {
     presolve(g, F, I, W, o, wc);
     warm_start(g, F, I, W, wc);
     velocity_solve(g, F, I, W, wc);
-    position_solve(g, F, I, W, wc);
+    ngs += position_solve(g, F, I, W, wc);
     finalize(g, F, I, W, o, wc);
   }
   for (int j = i; j < I.nj; j += G) W.jc[j].prev_motor = W.jc[j].ms;
   g.sync();
+  return ngs;
 }
 
 }  // namespace phys

@@ -31,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from boxlcd_tpu_torch import parallel
+from boxlcd_tpu_torch import parallel, trace
 from boxlcd_tpu_torch.data import native
 from boxlcd_tpu_torch.data.dataset import BARREL_SIZE, barrel_files
 from boxlcd_tpu_torch.engine import mega, physics
@@ -118,6 +118,12 @@ def make_mega_rollout_fn(env, pack_lcd=False):
   raster.lcd_render (the per-frame kernel on the card), equal the
   trajectory's frames bit for bit.
 
+  While tracing is on (boxlcd_tpu_torch.trace) a dispatch is the root span
+  `collect.dispatch` over `collect.reset`, `collect.actions`,
+  `collect.megakernel`, `collect.raster`, `collect.tripwire` and the
+  `collect.glue` between them (motor speeds, the pose stream, observe_pose,
+  the frames' unpacking, reshapes and pack_bits).
+
   The returned function has `.core(states, actions)` with actions a
   (B, T, act) tensor."""
   spec = env.spec
@@ -131,36 +137,48 @@ def make_mega_rollout_fn(env, pack_lcd=False):
 
   def core(states, actions):
     B = states.c.shape[0]
-    ms = physics.motor_speeds(spec, actions).transpose(0, 1).contiguous()
-    # o_t is the pose BEFORE action t: the reset pose, then the post-step
-    # poses 0..T-2 (the final action of a barrel is meaningless)
-    pose0 = torch.cat([states.c.permute(1, 2, 0),
-                       states.a.T[:, None]], 1)[None]          # (1, n, 3, B)
-    _, traj = rollout(states, ms)
-    poses = torch.cat([pose0, traj['stream']])[:T]             # (T, n, 3, B)
-    ic, cs, as_ = mega.flat_poses(poses, states.is_circle)
+    with trace.span('collect.glue'):
+      ms = physics.motor_speeds(spec, actions).transpose(0, 1).contiguous()
+      # o_t is the pose BEFORE action t: the reset pose, then the post-step
+      # poses 0..T-2 (the final action of a barrel is meaningless)
+      pose0 = torch.cat([states.c.permute(1, 2, 0),
+                         states.a.T[:, None]], 1)[None]        # (1, n, 3, B)
+    with trace.span('collect.megakernel'):
+      _, traj = rollout(states, ms)
+    with trace.span('collect.glue'):
+      poses = torch.cat([pose0, traj['stream']])[:T]           # (T, n, 3, B)
+      ic, cs, as_ = mega.flat_poses(poses, states.is_circle)
     if use_tr:
-      rows = trender.rows(poses, states.is_circle)               # (T, B, H)
-      obs = env.observe_pose(ic, cs, as_, lcd=False)
-      obs['lcd'] = raster.unpack_rows(rows, W).reshape(T * B, H, W)
+      with trace.span('collect.raster'):
+        rows = trender.rows(poses, states.is_circle)             # (T, B, H)
+      with trace.span('collect.glue'):
+        obs = env.observe_pose(ic, cs, as_, lcd=False)
+        obs['lcd'] = raster.unpack_rows(rows, W).reshape(T * B, H, W)
     else:
-      obs = env.observe_pose(ic, cs, as_)
-    chk = torch.as_tensor(np.linspace(0, T * B - 1, 16).astype(np.int64),
-                          device=cs.device)
-    want = raster.lcd_render(spec, ic[chk], cs[chk].contiguous(),
-                             as_[chk].contiguous(), W, H)
-    obs_ok = (obs['lcd'][chk] == want).all()
-    out = {k: v.reshape(T, B, *v.shape[1:]).transpose(0, 1)
-           for k, v in obs.items()}
-    out['lcd'] = pack_bits(out['lcd']) if pack_lcd else \
-        out['lcd'].to(torch.uint8)
+      with trace.span('collect.raster'):
+        obs = env.observe_pose(ic, cs, as_)
+    with trace.span('collect.tripwire'):
+      chk = torch.as_tensor(np.linspace(0, T * B - 1, 16).astype(np.int64),
+                            device=cs.device)
+      want = raster.lcd_render(spec, ic[chk], cs[chk].contiguous(),
+                               as_[chk].contiguous(), W, H)
+      obs_ok = (obs['lcd'][chk] == want).all()
+    with trace.span('collect.glue'):
+      out = {k: v.reshape(T, B, *v.shape[1:]).transpose(0, 1)
+             for k, v in obs.items()}
+      out['lcd'] = pack_bits(out['lcd']) if pack_lcd else \
+          out['lcd'].to(torch.uint8)
     out['action'] = actions
     out['obs_ok'] = obs_ok
     return out
 
   def batch_rollout(gen, batch_size):
-    states = Env.reset(env, gen, batch_size)
-    return core(states, _random_actions(env, gen, batch_size, T))
+    with trace.span('collect.dispatch'):
+      with trace.span('collect.reset'):
+        states = Env.reset(env, gen, batch_size)
+      with trace.span('collect.actions'):
+        actions = _random_actions(env, gen, batch_size, T)
+      return core(states, actions)
 
   batch_rollout.core = core
   return batch_rollout, T

@@ -16,7 +16,8 @@ rollout megakernel runs too.
 
 For tensors on the CPU each takes its plain version (`plain_velocity_solver`,
 `plain_substep_solver`: physics.velocity_solve and physics._position_solve);
-for tensors on the card it launches the kernel or raises. LAUNCHES counts
+for tensors on the card it launches the kernel or raises. The tracer's
+counters `solver.velocity.launches` and `solver.substep.launches` count
 the kernel's launches per kind.
 
 The kernel takes every spec within csrc/physics_stages.cuh's maxima
@@ -38,12 +39,10 @@ import ctypes
 
 import torch
 
-from boxlcd_tpu_torch import _build
+from boxlcd_tpu_torch import _build, trace
 from boxlcd_tpu_torch.engine import mega, physics
 from boxlcd_tpu_torch.engine.physics import SolveBundle
 from boxlcd_tpu_torch.engine.spec import WorldSpec
-
-LAUNCHES = {'velocity': 0, 'substep': 0}
 
 
 def plain_velocity_solver(spec: WorldSpec, b: SolveBundle) -> SolveBundle:
@@ -183,7 +182,7 @@ class _Solver:
       if err != 0:
         raise RuntimeError(f'batched_solver ({kind}) launch failed: '
                            f'cudaError {err}')
-      LAUNCHES[kind] += 1
+      trace.count(f'solver.{kind}.launches')
     return (b._replace(**carry), *ca)
 
 

@@ -30,7 +30,13 @@ default solver_exit_tol = 0 the two are the same.
 
 For tensors on the CPU the rollout takes the plain version (T calls of
 physics.step_world_motor); for tensors on the card it launches the kernel or
-raises. LAUNCHES counts the kernel's launches.
+raises. The tracer's counter `mega_rollout.launches` counts the kernel's
+launches, and `mega_rollout.counted_launches` those of its counted
+instance. While tracing is on, the launch takes the counted instance,
+which adds each world's NGS position iterations and substeps
+(`mega_rollout.ngs_iters`, `mega_rollout.world_substeps`) into a per-world
+buffer (trace.world_counts); the plain version counts the same under
+`physics.*` (physics.step_world_motor).
 """
 from __future__ import annotations
 
@@ -40,13 +46,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from boxlcd_tpu_torch import _build
+from boxlcd_tpu_torch import _build, trace
 from boxlcd_tpu_torch.engine import physics
 from boxlcd_tpu_torch.engine.physics import WorldState
 from boxlcd_tpu_torch.engine.spec import RANDOM, WorldSpec
 from boxlcd_tpu_torch.utils import NUM_SMS
 
-LAUNCHES = 0
+# the per-world counters of the kernel's counted instance, in its order
+COUNTS = ('mega_rollout.ngs_iters', 'mega_rollout.world_substeps')
 
 # csrc/physics_stages.cuh's compile-time maxima
 MAX_BODIES, MAX_JOINTS, MAX_PAIRS, MAX_WALLS, MAX_VERTS = 18, 16, 15, 4, 8
@@ -217,7 +224,7 @@ def _lib():
   if fn.argtypes is None:
     check_layout(lib)
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_long]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     lib.mega_rollout_occupancy.argtypes = [ctypes.c_int] * 3
     lib.mega_rollout_occupancy.restype = ctypes.c_int
@@ -262,13 +269,15 @@ class Rollout:
       return self.kernel_rollout(states, motor_speed)
     return self.plain_rollout(states, motor_speed)
 
-  def plain_rollout(self, states: WorldState, motor_speed):
-    """T calls of physics.step_world_motor, recording the poses."""
+  def plain_rollout(self, states: WorldState, motor_speed, counts=None):
+    """T calls of physics.step_world_motor, recording the poses; `counts`
+    is step_world_motor's."""
     spec = self.spec
     B = states.c.shape[0]
     stream = torch.empty((self.T, spec.n, 3, B), device=states.c.device)
     for t in range(self.T):
-      states = physics.step_world_motor(spec, states, motor_speed[t])
+      states = physics.step_world_motor(spec, states, motor_speed[t],
+                                        counts=counts)
       stream[t, :, :2] = states.c.permute(1, 2, 0)
       stream[t, :, 2] = states.a.T
     return states, _traj(stream)
@@ -312,10 +321,12 @@ class Rollout:
     return _lib().occupancy(geo.group, geo.worlds, geo.shared)
 
   def kernel_rollout(self, states: WorldState, motor_speed,
-                     threads: int | None = None):
+                     threads: int | None = None, counts=None):
     """Launch csrc/mega_rollout.cu on the current stream, at
-    launch_geometry(spec, B, threads)."""
-    global LAUNCHES
+    launch_geometry(spec, B, threads). `counts`, a (B, 2) int64 tensor on
+    the card, takes the counted instance, which adds each world's NGS
+    iterations and substeps (COUNTS) into its row; while tracing is on it
+    defaults to the tracer's buffer."""
     self._check(states, motor_speed)
     spec = self.spec
     B = states.c.shape[0]
@@ -325,6 +336,13 @@ class Rollout:
     new = states._replace(**out, ep_t=states.ep_t + self.T)
     if B == 0:
       return new, _traj(stream)
+    if counts is None:
+      counts = trace.world_counts(COUNTS, B, dev)
+    if counts is not None and (counts.device != dev or counts.dtype !=
+                               torch.int64 or tuple(counts.shape) != (B, 2)
+                               or not counts.is_contiguous()):
+      raise ValueError(f'counts must be a contiguous int64 {(B, 2)} tensor on '
+                       f'{dev}')
     fn = _lib()
     ftab, itab = device_tables(self._tables, fn.table_sizes, dev, self._dev)
     ptrs = [ftab, itab, states.is_circle, *(out[f] for f in _STATE_FIELDS),
@@ -334,10 +352,13 @@ class Rollout:
     with torch.cuda.device(dev):     # launch on the tensors' card
       err = fn(ctypes.cast(arr, ctypes.c_void_p), B, self.T, geo.group,
                geo.worlds, len(spec.pair_a), len(spec.j_parent), geo.shared,
+               None if counts is None else counts.data_ptr(),
                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
       raise RuntimeError(f'mega_rollout launch failed: cudaError {err}')
-    LAUNCHES += 1
+    trace.count('mega_rollout.launches')
+    if counts is not None:
+      trace.count('mega_rollout.counted_launches')
     return new, _traj(stream)
 
 

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from boxlcd_tpu_torch import trace
 from boxlcd_tpu_torch.engine import collision
 from boxlcd_tpu_torch.engine.collision import _sel, dot, norm, rot_apply
 from boxlcd_tpu_torch.engine.spec import WorldSpec
@@ -42,6 +43,9 @@ VELOCITY_THRESHOLD = 1.0
 TIME_TO_SLEEP = 0.5                      # b2_timeToSleep
 LIN_SLEEP_TOL_SQ = 0.01 ** 2             # b2_linearSleepTolerance^2
 ANG_SLEEP_TOL_SQ = (2.0 / 180.0 * 3.14159265) ** 2
+
+# step_world_motor's per-world counters (trace.world_counts), in its order
+COUNTS = ('physics.ngs_iters', 'physics.world_substeps')
 
 
 def cross_sv(w, r):
@@ -717,11 +721,13 @@ def velocity_solve(spec: WorldSpec, b: SolveBundle) -> SolveBundle:
 
 
 def _position_solve(spec: WorldSpec, st: WorldState, b: SolveBundle,
-                    aux: PostAux, record_done=False):
+                    aux: PostAux, record_done=False, ran=None):
   """Steps 7-8: integrate positions + NGS corrections. Returns (c, a); with
   record_done, (c, a, dones) where dones (B, pos_iters) is each world's
   Box2D exit flag after each iteration (research/scripts/exit_probe.py),
-  and every iteration runs.
+  and every iteration runs. `ran`, a (B,) int64 tensor, takes each world's
+  count of the iterations its result comes from: up to and including the
+  one that met the exit (the megakernel's count).
 
   b2Island::Solve EXITS the position loop once the iteration's contact
   minSeparation >= -3*linearSlop AND every joint reports
@@ -748,6 +754,8 @@ def _position_solve(spec: WorldSpec, st: WorldState, b: SolveBundle,
   # Box2D island order per position iteration: contacts first (walls then
   # pairs, spec order), then joints (limit correction, then point)
   for _ in range(spec.pos_iters):
+    if ran is not None:
+      ran += ~done
     c0, a0 = c, a
     c, a = c.clone(), a.clone()
     minsep = torch.zeros(c.shape[0], device=c.device)
@@ -943,7 +951,8 @@ def motor_speeds(spec: WorldSpec, actions):
 
 
 def step_world_motor(spec: WorldSpec, states: WorldState, motor_speed,
-                     velocity_solver=None, substep_solver=None) -> WorldState:
+                     velocity_solver=None, substep_solver=None,
+                     counts=None) -> WorldState:
   """Advance every world one env step = spec.substeps physics substeps, at
   the given motor speeds (B, J).
 
@@ -953,7 +962,13 @@ def step_world_motor(spec: WorldSpec, states: WorldState, motor_speed,
   velocity iterations, the position integration and the NGS position
   iterations and returns `(bundle', c, a)`; `velocity_solver(bundle)`
   replaces only the velocity iterations. With neither, the plain stages
-  run."""
+  run.
+
+  Where the plain NGS runs, `counts` (B, 2) int64 takes each world's NGS
+  iterations (_position_solve's `ran`) and substeps (COUNTS); while tracing
+  is on it defaults to the tracer's buffer."""
+  if counts is None and substep_solver is None:
+    counts = trace.world_counts(COUNTS, states.c.shape[0], states.c.device)
   K = consts(spec, states.c.device)
   # a changed motor speed wakes the joint's bodies (pybox2d SetMotorSpeed)
   motor_changed = (motor_speed != states.prev_motor) & K.j_valid
@@ -966,7 +981,10 @@ def step_world_motor(spec: WorldSpec, states: WorldState, motor_speed,
         bundle = velocity_solve(spec, bundle)
       else:
         bundle = velocity_solver(bundle)
-      c, a = _position_solve(spec, states, bundle, aux)
+      c, a = _position_solve(spec, states, bundle, aux,
+                             ran=None if counts is None else counts[:, 0])
+      if counts is not None:
+        counts[:, 1] += 1
     states = _finalize(spec, K, states, bundle, aux, motor_changed, c, a)
   return states._replace(ep_t=states.ep_t + 1, prev_motor=motor_speed)
 

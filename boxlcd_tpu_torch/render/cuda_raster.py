@@ -15,7 +15,8 @@ bit-comparable on the card.
 
 For tensors on the CPU the wrapper takes the plain version
 (raster.lcd_rows_plain); for tensors on the card it launches the kernel or
-raises. LAUNCHES counts the kernel's launches.
+raises. The tracer's counter `lcd_raster.launches` counts the kernel's
+launches.
 
 `launch_geometry` sizes a launch of either raster kernel (this one and
 csrc/traj_raster.cu, which share csrc/lcd_common.cuh's frame core): a tile of
@@ -31,12 +32,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from boxlcd_tpu_torch import _build
+from boxlcd_tpu_torch import _build, trace
 from boxlcd_tpu_torch.engine.spec import WorldSpec
 from boxlcd_tpu_torch.render import raster
 from boxlcd_tpu_torch.utils import MAX_SHARED_BYTES
-
-LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 10 + [ctypes.c_long] + [ctypes.c_int] * 5 + [
@@ -169,7 +168,6 @@ class BatchedRender:
   def kernel_rows(self, is_circle, c, cosa, sina):
     """Launch csrc/lcd_raster.cu on the current stream, at
     launch_geometry(spec, B, H)."""
-    global LAUNCHES
     spec = self.spec
     B, N = is_circle.shape if is_circle.dim() == 2 else (-1, -1)
     if N != spec.n:
@@ -199,7 +197,7 @@ class BatchedRender:
                    geo.lanes, geo.threads, geo.shared, out.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f'lcd_raster launch failed: cudaError {err}')
-    LAUNCHES += 1
+    trace.count('lcd_raster.launches')
     return out
 
 

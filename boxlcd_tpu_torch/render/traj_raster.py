@@ -15,7 +15,8 @@ kernel and plain version alike, so the two are bit-comparable on the card.
 
 For tensors on the CPU the wrapper takes the plain version (the T * B frames
 flattened through raster.lcd_rows_plain); for tensors on the card it launches
-the kernel or raises. LAUNCHES counts the kernel's launches.
+the kernel or raises. The tracer's counter `traj_raster.launches` counts
+the kernel's launches.
 """
 from __future__ import annotations
 
@@ -23,11 +24,9 @@ import ctypes
 
 import torch
 
-from boxlcd_tpu_torch import _build
+from boxlcd_tpu_torch import _build, trace
 from boxlcd_tpu_torch.engine.spec import CIRCLE, POLY, RANDOM, WorldSpec
 from boxlcd_tpu_torch.render import cuda_raster, raster
-
-LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 10 + [ctypes.c_long] * 2 + [ctypes.c_int] * 5 + [
@@ -77,7 +76,6 @@ class TrajRender:
   def kernel_rows(self, poses, cosa, sina, is_circle):
     """Launch csrc/traj_raster.cu on the current stream, at
     cuda_raster.launch_geometry(spec, T * B, H)."""
-    global LAUNCHES
     spec = self.spec
     if poses.dim() != 4 or poses.shape[1:3] != (spec.n, 3):
       raise ValueError(f'poses must be (T, {spec.n}, 3, B), got '
@@ -109,7 +107,7 @@ class TrajRender:
                    out.data_ptr(), stream)
     if err != 0:
       raise RuntimeError(f'traj_raster launch failed: cudaError {err}')
-    LAUNCHES += 1
+    trace.count('traj_raster.launches')
     return out
 
 

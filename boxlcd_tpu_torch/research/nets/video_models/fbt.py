@@ -14,6 +14,7 @@ import copy
 import torch
 import torch.nn as nn
 
+from boxlcd_tpu_torch import trace
 from boxlcd_tpu_torch.data.collect import pack_bits, unpack_bits
 from boxlcd_tpu_torch.research.nets import dists
 from boxlcd_tpu_torch.research.nets.common import (
@@ -176,16 +177,22 @@ class FBT(VideoModel):
   def onestep(self, batch, i, gen, temp=1.0, u=None):
     """Learned-env serving: predict frame i from the window
     (reference: flat_btoken.py:77-85). The token draws read uniforms u
-    (B, z_size), drawn from `gen` unless given."""
-    z = self.bvae.encode(batch, noise=False)
-    logits = self.module(z, batch['action'])
-    zi = dists.Bernoulli(logits[:, i] / temp).sample(gen, u=u)
-    dec = self.bvae.decode(self.bvae.unflatten_z(zi))
-    batch = dict(batch)
-    batch['lcd'] = batch['lcd'].clone()
-    batch['proprio'] = batch['proprio'].clone()
-    batch['lcd'][:, i] = (dec['lcd'].probs > 0.5).float()
-    batch['proprio'][:, i] = dec['proprio'].mean
+    (B, z_size), drawn from `gen` unless given. Spans (trace):
+    `onestep.encode` (the BVAE over the window), `onestep.fbt`,
+    `onestep.draw`, `onestep.decode` (the BVAE decode and the writes)."""
+    with trace.span('onestep.encode'):
+      z = self.bvae.encode(batch, noise=False)
+    with trace.span('onestep.fbt'):
+      logits = self.module(z, batch['action'])
+    with trace.span('onestep.draw'):
+      zi = dists.Bernoulli(logits[:, i] / temp).sample(gen, u=u)
+    with trace.span('onestep.decode'):
+      dec = self.bvae.decode(self.bvae.unflatten_z(zi))
+      batch = dict(batch)
+      batch['lcd'] = batch['lcd'].clone()
+      batch['proprio'] = batch['proprio'].clone()
+      batch['lcd'][:, i] = (dec['lcd'].probs > 0.5).float()
+      batch['proprio'][:, i] = dec['proprio'].mean
     return batch
 
   @torch.no_grad()

@@ -39,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from boxlcd_tpu_torch import parallel
+from boxlcd_tpu_torch import parallel, trace
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.research import utils
 from boxlcd_tpu_torch.research.nets._base import _to_cpu, write_atomic
@@ -291,9 +291,11 @@ class PPO(RLAlgo):
     return self._store_traj(traj, last_v, ep_ret, ep_len)
 
   # -- the fused learned-env epoch (JAX: ppo.py:215-348) ----------------------
+  @trace.spanned('dream.pools')
   def sample_pools(self):
     """The epoch's prompt and goal pools: pool_size(B) observations of
-    fresh real resets each (one lcd raster launch each on the card)."""
+    fresh real resets each (one lcd raster launch each on the card); the
+    span `dream.pools`."""
     raw = self.env.lenv.raw_env
     n = pool_size(self.env.lenv.num_envs)
 
@@ -324,6 +326,7 @@ class PPO(RLAlgo):
                                    self._shards().devices[1:]]
 
   @torch.no_grad()
+  @trace.spanned('dream.call')
   def lenv_rollout(self, wb, ptr, ep_t, goals, steps, draws=None):
     """`steps` dream steps: JAX's scanned rollout (ppo.py:250-339), step
     for step. wb: the window batch (B, W, ...) on the device; ptr, ep_t:
@@ -340,7 +343,12 @@ class PPO(RLAlgo):
     indices; the rest is drawn from self.gen. Over a mesh, wb and goals
     are sharded, the pools copied to every device, and each device runs
     the step on its rows with its replicas. Returns (wb, ptr, ep_t, goals,
-    traj, last_v), traj as in `rollout`."""
+    traj, last_v), traj as in `rollout`.
+
+    While tracing is on (boxlcd_tpu_torch.trace) a call is the root span
+    `dream.call` over `dream.pools` (when it draws them), one `dream.step`
+    a step (`dream.policy`, onestep's `onestep.*`, `dream.env`) and
+    `dream.host_copy` (last_v and the trajectory to the host)."""
     G = self.G
     renv = self.env
     lenv = renv.lenv
@@ -369,58 +377,62 @@ class PPO(RLAlgo):
     wb, goals = mesh.shard(wb), mesh.shard(goals)
     traj = [[] for _ in range(mesh.n)]
     for t in range(steps):
-      shard_gens = parallel.ShardDraws(self.gen, mesh.n)
-      eps, u = drawn('eps', t), drawn('u', t)
-      pidx, gidx = drawn('pidx', t), drawn('gidx', t)
-      ptr2 = min(ptr + 1, W - 1)
-      slide = ptr2 == W - 1
-      ep_t += 1
-      timeout = ep_t >= ep_len                          # lockstep
-      for i, (model, ac) in enumerate(zip(models, acs)):
-        gen = shard_gens.shard(i)
-        wbi, gi = wb[i], goals[i]
-        B, dev = wbi['action'].shape[0], wbi['action'].device
-        o = net_obs(wbi, ptr, gi)
-        a, v, logp = self._step(o, eps[i], ac, gen)
-        # LearnedEnv.step
-        wbi = dict(wbi, action=wbi['action'].clone())
-        wbi['action'][:, ptr - 1] = a
-        wbi = model.onestep(wbi, ptr, gen, temp, u=u[i])
-        npro = wbi['proprio'][:, ptr]
-        if slide:
-          wbi = {k: torch.cat([v_[:, 1:], torch.zeros_like(v_[:, :1])], 1)
-                 for k, v_ in wbi.items()}
-        # RewardLenv's body-goal reward
-        b = bidx[i]
-        delta = (gi['goal:proprio'][:, b] - npro[:, b]).abs().mean(-1)
-        goal_done = delta < G.goal_thresh
-        tvec = torch.full((B,), timeout, device=dev)
-        success = goal_done & ~tvec
-        rew = (-delta + success) * G.rew_scale
-        done = tvec | goal_done
-        # autoreset: every row from the prompt pool on the (lockstep)
-        # timeout; a new goal where a row reached its goal or timed out
+      with trace.span('dream.step'):
+        shard_gens = parallel.ShardDraws(self.gen, mesh.n)
+        eps, u = drawn('eps', t), drawn('u', t)
+        pidx, gidx = drawn('pidx', t), drawn('gidx', t)
+        ptr2 = min(ptr + 1, W - 1)
+        slide = ptr2 == W - 1
+        ep_t += 1
+        timeout = ep_t >= ep_len                          # lockstep
+        for i, (model, ac) in enumerate(zip(models, acs)):
+          gen = shard_gens.shard(i)
+          wbi, gi = wb[i], goals[i]
+          B, dev = wbi['action'].shape[0], wbi['action'].device
+          with trace.span('dream.policy'):
+            o = net_obs(wbi, ptr, gi)
+            a, v, logp = self._step(o, eps[i], ac, gen)
+          # LearnedEnv.step
+          wbi = dict(wbi, action=wbi['action'].clone())
+          wbi['action'][:, ptr - 1] = a
+          wbi = model.onestep(wbi, ptr, gen, temp, u=u[i])
+          with trace.span('dream.env'):
+            npro = wbi['proprio'][:, ptr]
+            if slide:
+              wbi = {k: torch.cat([v_[:, 1:], torch.zeros_like(v_[:, :1])],
+                                  1) for k, v_ in wbi.items()}
+            # RewardLenv's body-goal reward
+            b = bidx[i]
+            delta = (gi['goal:proprio'][:, b] - npro[:, b]).abs().mean(-1)
+            goal_done = delta < G.goal_thresh
+            tvec = torch.full((B,), timeout, device=dev)
+            success = goal_done & ~tvec
+            rew = (-delta + success) * G.rew_scale
+            done = tvec | goal_done
+            # autoreset: every row from the prompt pool on the (lockstep)
+            # timeout; a new goal where a row reached its goal or timed out
+            if timeout:
+              p = pidx[i] if pidx[i] is not None else parallel.randint(
+                  POOL, (B,), gen, dev)
+              wbi = self._fresh_wb({k: v_[p] for k, v_ in
+                                    pools[i]['prompt_pool'].items()})
+            g = gidx[i] if gidx[i] is not None else parallel.randint(
+                POOL, (B,), gen, dev)
+            goals[i] = {k: torch.where(
+                done.view(B, *([1] * (x.dim() - 1))),
+                pools[i]['goal_pool'][k.split(':')[1]][g], x)
+                for k, x in gi.items()}
+          wb[i] = wbi
+          traj[i].append((o, a, rew, v, logp, done, success))
+        ptr = ptr2 - 1 if slide else ptr2
         if timeout:
-          p = pidx[i] if pidx[i] is not None else parallel.randint(
-              POOL, (B,), gen, dev)
-          wbi = self._fresh_wb({k: v_[p] for k, v_ in
-                                pools[i]['prompt_pool'].items()})
-        g = gidx[i] if gidx[i] is not None else parallel.randint(
-            POOL, (B,), gen, dev)
-        goals[i] = {k: torch.where(done.view(B, *([1] * (x.dim() - 1))),
-                                   pools[i]['goal_pool'][k.split(':')[1]][g],
-                                   x)
-                    for k, x in gi.items()}
-        wb[i] = wbi
-        traj[i].append((o, a, rew, v, logp, done, success))
-      ptr = ptr2 - 1 if slide else ptr2
-      if timeout:
-        ptr, ep_t = 1, 0
-    last_v = [to_numpy(ac.value(net_obs(w, ptr, g)))
-              for ac, w, g in zip(acs, wb, goals)]
-    return (mesh.gather(wb), ptr, ep_t, mesh.gather(goals),
-            mesh.gather([_stack(tr) for tr in traj], axis=1),
-            mesh.gather(last_v))
+          ptr, ep_t = 1, 0
+    with trace.span('dream.host_copy'):
+      last_v = [to_numpy(ac.value(net_obs(w, ptr, g)))
+                for ac, w, g in zip(acs, wb, goals)]
+      return (mesh.gather(wb), ptr, ep_t, mesh.gather(goals),
+              mesh.gather([_stack(tr) for tr in traj], axis=1),
+              mesh.gather(last_v))
 
   def _run_fused_lenv_epoch(self, ep_ret, ep_len_acc):
     """Collect one dream epoch on the device and feed the host GAE

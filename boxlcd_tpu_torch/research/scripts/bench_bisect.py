@@ -35,18 +35,18 @@ import time
 import torch
 
 import boxlcd_tpu_torch
-from boxlcd_tpu_torch import utils
+from boxlcd_tpu_torch import trace, utils
 from boxlcd_tpu_torch.engine import mega, physics
 from boxlcd_tpu_torch.envs.env import Env
-from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
+from boxlcd_tpu_torch.render import raster, traj_raster
 
 STAGES = ('phys', 'phys+tiles', '+lcd_kernel', '+lcd_unpack', '+full_state',
           'full(old)')
 
 
 def launches():
-  return {'mega_rollout': mega.LAUNCHES, 'traj_raster': traj_raster.LAUNCHES,
-          'lcd_raster': cuda_raster.LAUNCHES}
+  return {k: trace.counter(f'{k}.launches')
+          for k in ('mega_rollout', 'traj_raster', 'lcd_raster')}
 
 
 def make_stages(env, T, threads=None):

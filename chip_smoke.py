@@ -31,6 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      path's shape (Urchin, 4000 worlds x 100 random-action steps), where
      the kernel is timed at 25 and 100 steps, beside its launch geometry,
      occupancy and its times at each block size launch_geometry picks from;
+     then its counted instance (a traced run's) at the collection cells'
+     shapes (4000 worlds at 180/60, 4096 at 8/4, 100 steps) equal to the
+     uncounted one bit for bit, counted under its own launch counter, and
+     over 5 steps 64 of its worlds' NGS counts equal to the plain version's;
   6. reference: the per-step core on the card against the CPU, and the
      megakernel path against the per-step path on the card from one seed
      (equal actions, t = 0 frames equal bit for bit);
@@ -206,7 +210,7 @@ import numpy as np
 import torch
 
 import boxlcd_tpu_torch
-from boxlcd_tpu_torch import _build, viewer
+from boxlcd_tpu_torch import _build, trace, viewer
 from boxlcd_tpu_torch.data.collect import (
     fill_barrels, make_mega_rollout_fn, make_rollout_fn, pack_bits,
     write_barrel_file)
@@ -842,8 +846,73 @@ def mega_phase(dev):
     g = mega.launch_geometry(spec, MEGA_CHECK_B)
     occ = mega.make_rollout(spec, 2).occupancy(MEGA_CHECK_B)
     log(f'[mega] geometry {name} B={MEGA_CHECK_B}: {_geo(g, occ)}')
+  counted = {label: counted_check(dev, *shape)
+             for label, shape in COUNTED_SHAPES.items()}
   return dict(max_abs_err=max(worst.values()), worst=worst, times=t,
-              geometry=geometry), refs
+              geometry=geometry, counted=counted), refs
+
+
+# the shapes of the benchmark's collection cells, where a traced run
+# launches the megakernel's counted instance: Urchin, worlds, vel_iters,
+# pos_iters, 100 steps
+COUNTED_SHAPES = {'collect': (4000, 180, 60), 'rollout': (4096, 8, 4)}
+COUNTED_SAMPLE, COUNTED_T = 64, 5
+
+
+def counted_check(dev, B, vel_iters, pos_iters):
+  """The megakernel's counted instance against the uncounted one at a
+  collection cell's shape: the states and the pose stream of 100 steps
+  equal bit for bit, each launch counted under mega_rollout.launches and
+  only the counted one under mega_rollout.counted_launches, every world's
+  substeps counted; then over the first COUNTED_T steps at the full width,
+  each of COUNTED_SAMPLE worlds spread over the batch ran as many NGS
+  iterations as the plain version of that world."""
+  env = _env(MAIN_ENV, dev, vel_iters=vel_iters, pos_iters=pos_iters)
+  spec, T = env.spec, int(env.G.ep_len)
+  label = f'{MAIN_ENV} {vel_iters}/{pos_iters} B={B} T={T}'
+  gen = torch.Generator(device=dev).manual_seed(4)
+  st = Env.reset(env, gen, B)
+  ms = _motor_speeds(env, torch.rand((B, T, env.act_size), generator=gen,
+                                     device=dev) * 2 - 1)
+  rollout = mega.make_rollout(spec, T)
+  names = ('mega_rollout.launches', 'mega_rollout.counted_launches')
+  c0 = [trace.counter(k) for k in names]
+  new, traj = rollout.kernel_rollout(st, ms)
+  c1 = [trace.counter(k) for k in names]
+  counts = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+  cnew, ctraj = rollout.kernel_rollout(st, ms, counts=counts)
+  c2 = [trace.counter(k) for k in names]
+  torch.cuda.synchronize()
+  diff = [f for f in physics.WorldState._fields
+          if not torch.equal(getattr(new, f), getattr(cnew, f))]
+  if not torch.equal(traj['stream'], ctraj['stream']):
+    diff.append('stream')
+  grew = ([b - a for a, b in zip(c0, c1)], [b - a for a, b in zip(c1, c2)])
+  subs = counts[:, 1].unique().tolist()
+  per = float(counts[:, 0].sum()) / float(counts[:, 1].sum())
+
+  short = mega.make_rollout(spec, COUNTED_T)
+  ms_t = ms[:COUNTED_T].contiguous()
+  kern = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+  short.kernel_rollout(st, ms_t, counts=kern)
+  idx = torch.linspace(0, B - 1, COUNTED_SAMPLE, device=dev).long()
+  plain = torch.zeros((COUNTED_SAMPLE, 2), dtype=torch.int64, device=dev)
+  short.plain_rollout(physics.WorldState(*(f[idx] for f in st)),
+                      ms_t[:, idx].contiguous(), counts=plain)
+  torch.cuda.synchronize()
+  off = int((kern[idx] != plain).any(1).sum())
+  log(f'[mega] counted instance, {label}: fields unequal to the uncounted '
+      f'launch {diff or "none"}; launches counted (all, counted) '
+      f'{grew[0]} uncounted, {grew[1]} counted; substeps a world {subs}; '
+      f'{per:.4f} NGS iterations a world-substep; over {COUNTED_T} steps '
+      f'{COUNTED_SAMPLE} sampled worlds, {off} whose NGS count differs from '
+      f'the plain version')
+  if diff or grew != ([1, 0], [1, 1]) or subs != [T * spec.substeps] \
+      or off:
+    raise RuntimeError(f'megakernel counted instance, {label}: fields '
+                       f'{diff}, launches {grew}, substeps {subs}, {off} '
+                       f'worlds off the plain NGS count')
+  return dict(ngs_iters=per, equal=True, sample_equal=COUNTED_SAMPLE)
 
 
 def _geo(g, occ):
@@ -942,17 +1011,24 @@ def reference_phase(dev):
               mega_median_err=float(np.median(err_m)), mega_equal_pixels=pix)
 
 
+# each kernel's launch counter in the tracer, by the name the smoke prints
+LAUNCH_COUNTERS = {'mega_rollout': 'mega_rollout.launches',
+                   'traj_raster': 'traj_raster.launches',
+                   'lcd_raster': 'lcd_raster.launches',
+                   'velocity_solver': 'solver.velocity.launches',
+                   'substep_solver': 'solver.substep.launches'}
+_LAUNCH_BASE = {}
+
+
 def _zero_launches():
+  """Count launches from here: _launches() reads the counters' growth."""
   torch.cuda.synchronize()
-  cuda_raster.LAUNCHES = traj_raster.LAUNCHES = mega.LAUNCHES = 0
-  cuda_solver.LAUNCHES.update(velocity=0, substep=0)
+  _LAUNCH_BASE.update(trace.counters())
 
 
 def _launches():
-  return {'mega_rollout': mega.LAUNCHES, 'traj_raster': traj_raster.LAUNCHES,
-          'lcd_raster': cuda_raster.LAUNCHES,
-          'velocity_solver': cuda_solver.LAUNCHES['velocity'],
-          'substep_solver': cuda_solver.LAUNCHES['substep']}
+  return {k: trace.counter(c) - _LAUNCH_BASE.get(c, 0)
+          for k, c in LAUNCH_COUNTERS.items()}
 
 
 def _expect(**counts):
@@ -2435,12 +2511,13 @@ class Timed:
   def _wrap(self, name, fn):
     def timed(*a, **k):
       torch.cuda.synchronize()
-      lcd0 = cuda_raster.LAUNCHES
+      lcd0 = trace.counter('lcd_raster.launches')
       t0 = time.perf_counter()
       out = fn(*a, **k)
       torch.cuda.synchronize()
-      self.calls[name].append(dict(ms=(time.perf_counter() - t0) * 1e3,
-                                   lcd=cuda_raster.LAUNCHES - lcd0))
+      self.calls[name].append(dict(
+          ms=(time.perf_counter() - t0) * 1e3,
+          lcd=trace.counter('lcd_raster.launches') - lcd0))
       return out
     return timed
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import boxlcd_tpu_torch
+from boxlcd_tpu_torch import trace
 from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster, traj_raster
@@ -59,10 +60,10 @@ def test_kernel_equals_plain(cuda_device, env_name, width, height):
   ic, c, a = _poses(env, 3000, 0, cuda_device)
   cosa, sina = torch.cos(a), torch.sin(a)
   render = cuda_raster.make_batched_render(env.spec, width, height)
-  before = cuda_raster.LAUNCHES
+  before = trace.counter('lcd_raster.launches')
   got = render.kernel_rows(ic, c, cosa, sina)
   torch.cuda.synchronize()
-  assert cuda_raster.LAUNCHES == before + 1
+  assert trace.counter('lcd_raster.launches') == before + 1
   want = raster.lcd_rows_plain(env.spec, ic, c, cosa, sina, width, height)
   assert got.dtype == torch.int32 and got.shape == (3000, height)
   assert int((got != want).sum()) == 0
@@ -114,10 +115,10 @@ def test_traj_kernel_equals_plain(cuda_device, env_name):
   render = traj_raster.make_traj_render(env.spec, W, env.lcd_h)
   ang = poses[:, :, 2]
   cosa, sina = torch.cos(ang), torch.sin(ang)
-  before = traj_raster.LAUNCHES
+  before = trace.counter('traj_raster.launches')
   got = render.kernel_rows(poses, cosa, sina, st.is_circle)
   torch.cuda.synchronize()
-  assert traj_raster.LAUNCHES == before + 1
+  assert trace.counter('traj_raster.launches') == before + 1
   want = render.plain_rows(poses, cosa, sina, st.is_circle)
   assert got.dtype == torch.int32 and got.shape == (6, 2048, env.lcd_h)
   assert int((got != want).sum()) == 0
@@ -130,10 +131,10 @@ def test_megakernel_within_bounds_of_plain(cuda_device, env_name):
   B, T = 1024, 8
   st, ms = _mega_inputs(env, B, T, cuda_device)
   rollout = mega.make_rollout(env.spec, T)
-  before = mega.LAUNCHES
+  before = trace.counter('mega_rollout.launches')
   new, traj = rollout.kernel_rollout(st, ms)
   torch.cuda.synchronize()
-  assert mega.LAUNCHES == before + 1
+  assert trace.counter('mega_rollout.launches') == before + 1
   ref, ref_traj = rollout.plain_rollout(st, ms)
   assert torch.equal(new.ep_t, st.ep_t + T)
   for f in MEGA_FIELDS:
@@ -194,10 +195,10 @@ def test_solver_kernel_within_bounds_of_plain(cuda_device, env_name, hook):
     st = physics.step_world_batch(spec, st, act)
   solver = (cuda_solver.make_batched_solver(spec) if hook == 'velocity'
             else cuda_solver.make_substep_solver(spec))
-  before = cuda_solver.LAUNCHES[hook]
+  before = trace.counter(f'solver.{hook}.launches')
   got = physics.step_world_batch(spec, st, act, **{f'{hook}_solver': solver})
   torch.cuda.synchronize()
-  assert cuda_solver.LAUNCHES[hook] == before + spec.substeps
+  assert trace.counter(f'solver.{hook}.launches') == before + spec.substeps
   want = physics.step_world_batch(spec, st, act)
   bound, fields = SOLVER_FIELDS[hook]
   for f in fields:
@@ -236,10 +237,10 @@ def test_vec_env_on_the_card_launches_the_raster(cuda_device):
   venv = VecEnv(env, 8, AttrDict(goal_thresh=0.05, rew_scale=1.0),
                 goal_mode='body')
   obs = venv.reset()
-  before = cuda_raster.LAUNCHES
+  before = trace.counter('lcd_raster.launches')
   obs, rew, done, infos = venv.step(np.zeros((8, env.act_size), np.float32))
   torch.cuda.synchronize()
-  assert cuda_raster.LAUNCHES > before
+  assert trace.counter('lcd_raster.launches') > before
   assert isinstance(obs['lcd'], np.ndarray) and obs['lcd'].shape == (
       8, env.lcd_h, env.lcd_w)
   assert rew.shape == (8,) and len(infos) == 8
@@ -262,10 +263,10 @@ def test_megakernel_groups_match_plain(cuda_device, env_name, B):
   T = 6
   st, ms = _mega_inputs(env, B, T, cuda_device)
   rollout = mega.make_rollout(env.spec, T)
-  before = mega.LAUNCHES
+  before = trace.counter('mega_rollout.launches')
   new, traj = rollout.kernel_rollout(st, ms)
   torch.cuda.synchronize()
-  assert mega.LAUNCHES == before + 1
+  assert trace.counter('mega_rollout.launches') == before + 1
   ref, ref_traj = rollout.plain_rollout(st, ms)
   for f in MEGA_FIELDS:
     err = (getattr(ref, f).float() - getattr(new, f).float()).abs()
@@ -437,12 +438,11 @@ def _bench_chunks(dev, kind, T=2, B=1024):
   st = Env.reset(env, gen, B)
   acts = torch.rand((T, B, env.act_size), generator=gen, device=dev) * 2 - 1
   torch.cuda.synchronize()
-  before = (mega.LAUNCHES, traj_raster.LAUNCHES, cuda_raster.LAUNCHES,
-            cuda_solver.LAUNCHES['substep'])
+  kernels = ('mega_rollout', 'traj_raster', 'lcd_raster', 'solver.substep')
+  before = [trace.counter(f'{k}.launches') for k in kernels]
   got = bench.make_chunk(env, kind, T)(st, acts)
   torch.cuda.synchronize()
-  after = (mega.LAUNCHES, traj_raster.LAUNCHES, cuda_raster.LAUNCHES,
-           cuda_solver.LAUNCHES['substep'])
+  after = [trace.counter(f'{k}.launches') for k in kernels]
   want = bench.make_chunk(env, 'jnp', T)(st, acts)
   return got, want, [a - b for a, b in zip(after, before)], env
 

@@ -19,6 +19,7 @@ import boxlcd_tpu
 import boxlcd_tpu_torch
 from boxlcd_tpu.envs.env import Env as JEnv
 from boxlcd_tpu.render import raster as jraster
+from boxlcd_tpu_torch import trace
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, raster
 
@@ -216,9 +217,9 @@ def test_batched_render_on_cpu_takes_plain_path():
   gen = torch.Generator().manual_seed(1)
   st = Env.reset(env, gen, 16)
   render = cuda_raster.make_batched_render(env.spec, env.lcd_w, env.lcd_h)
-  before = cuda_raster.LAUNCHES
+  before = trace.counter('lcd_raster.launches')
   got = render(st.is_circle, st.c, st.a)
-  assert cuda_raster.LAUNCHES == before
+  assert trace.counter('lcd_raster.launches') == before
   want = raster.lcd_render_plain(env.spec, st.is_circle, st.c,
                                  torch.cos(st.a), torch.sin(st.a),
                                  env.lcd_w, env.lcd_h)

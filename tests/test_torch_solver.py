@@ -20,6 +20,7 @@ import boxlcd_tpu
 import boxlcd_tpu_torch
 from boxlcd_tpu.engine import physics as jphys
 from boxlcd_tpu.envs.env import Env as JEnv
+from boxlcd_tpu_torch import trace
 from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.engine.spec import compile_world
 from boxlcd_tpu_torch.envs.env import Env
@@ -67,12 +68,14 @@ def test_plain_hooks_are_bit_identical(env_name, hook):
   else:
     solver = cuda_solver.make_substep_solver(spec)
     explicit = lambda s, b, a: cuda_solver.plain_substep_solver(spec, s, b, a)
-  before = dict(cuda_solver.LAUNCHES)
+  launches = lambda: {k: trace.counter(f'solver.{k}.launches')
+                      for k in ('velocity', 'substep')}
+  before = launches()
   for fn in (solver, explicit):
     got = physics.step_world_batch(spec, st, act, **{f'{hook}_solver': fn})
     for f in physics.WorldState._fields:
       assert torch.equal(getattr(got, f), getattr(want, f)), (hook, f)
-  assert cuda_solver.LAUNCHES == before     # the CPU takes the plain version
+  assert launches() == before     # the CPU takes the plain version
 
 
 def test_velocity_hook_matches_jax_plain_step():
