@@ -62,7 +62,9 @@ class VideoModel(Net):
 
   # subclass contract: sample(gen, n, action=None, prompts=None, prompt_n=10,
   #                           temp=1.0) -> {'lcd': (n,T,H,W), 'proprio': ...}
-  # and onestep(batch, i, gen, temp) for learned-env serving.
+  # and onestep(batch, i, gen, temp) for learned-env serving; optionally
+  # encode_window(batch) -> the window's codes, which PPO.lenv_rollout then
+  # carries in the window batch under 'z' for onestep to update (FBT).
 
   def _re_render_proprio(self, proprio):
     """(B, T, pobs) predicted proprio -> (B, T, H, W) frames."""

@@ -108,6 +108,7 @@ class FBT(VideoModel):
     self.z_size = bvae.z_size
     self._init()
     self._net64 = None   # (weights' key, float64 copy) for `sample`
+    self._graphs = {}    # (device, shapes) -> a CUDA graph of the encode
 
   def build(self):
     G = self.G
@@ -174,14 +175,75 @@ class FBT(VideoModel):
     return z
 
   @torch.no_grad()
+  def encode_window(self, batch):
+    """The window's codes (B, W, z_size): the BVAE over every frame, as
+    `onestep` encodes a window that carries none. A caller that steps the
+    window puts them in the window batch under 'z' and slides them with
+    the frames."""
+    z = self.bvae.encode(batch, noise=False)
+    trace.count('onestep.frames_encoded', z.shape[0] * z.shape[1])
+    return z
+
+  def _encode_frames(self, lcd, proprio):
+    """The BVAE's codes (B, z_size) of B frames, lcd (B, H, W) and proprio
+    (B, p). On the card, the replay of a CUDA graph of the encode at these
+    shapes: one launch where the host would enqueue the encode's hundred
+    kernels, each step. The graph is captured at the first call and again
+    once a BVAE parameter changes (as `serving_net` keys its copy); the
+    codes it returns are its output buffer, valid until the next call."""
+    if lcd.device.type != 'cuda':
+      return self.bvae.encode({'lcd': lcd, 'proprio': proprio}, noise=False)
+    where = (lcd.device, lcd.shape, proprio.shape)
+    key = tuple((p.data_ptr(), p._version)
+                for p in self.bvae.module.parameters())
+    with torch.cuda.device(lcd.device):
+      g = self._graphs.get(where)
+      if g is None or g[0] != key:
+        ins = tuple(x.clone(memory_format=torch.contiguous_format)
+                    for x in (lcd, proprio))
+        encode = lambda: self.bvae.encode(  # noqa: E731
+            {'lcd': ins[0], 'proprio': ins[1]}, noise=False)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):   # warm-up: workspaces, plans
+          for _ in range(3):
+            encode()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+          out = encode()
+        g = self._graphs[where] = (key, graph, ins, out)
+      _, graph, ins, out = g
+      ins[0].copy_(lcd)
+      ins[1].copy_(proprio)
+      graph.replay()
+    return out
+
+  @torch.no_grad()
   def onestep(self, batch, i, gen, temp=1.0, u=None):
     """Learned-env serving: predict frame i from the window
     (reference: flat_btoken.py:77-85). The token draws read uniforms u
     (B, z_size), drawn from `gen` unless given. Spans (trace):
     `onestep.encode` (the BVAE over the window), `onestep.fbt`,
-    `onestep.draw`, `onestep.decode` (the BVAE decode and the writes)."""
+    `onestep.draw`, `onestep.decode` (the BVAE decode and the writes).
+
+    A window batch that carries its codes under 'z' (`encode_window`),
+    valid at positions < i - 1, has only frame i - 1 encoded, the frame
+    the window gained since the last step; the returned batch carries the
+    codes, then valid at positions < i. The BVAE encodes each frame on its
+    own and the FBT is causal, so the logits at i are the full path's.
+    The counters `onestep.frames_encoded` and `onestep.codes_reused` count
+    the frames put through the encoder and the codes taken as carried."""
     with trace.span('onestep.encode'):
-      z = self.bvae.encode(batch, noise=False)
+      if 'z' in batch:
+        z = batch['z'].clone()
+        z[:, i - 1] = self._encode_frames(batch['lcd'][:, i - 1],
+                                          batch['proprio'][:, i - 1])
+        B, W = z.shape[:2]
+        trace.count('onestep.frames_encoded', B)
+        trace.count('onestep.codes_reused', B * (W - 1))
+      else:
+        z = self.encode_window(batch)
     with trace.span('onestep.fbt'):
       logits = self.module(z, batch['action'])
     with trace.span('onestep.draw'):
@@ -193,6 +255,8 @@ class FBT(VideoModel):
       batch['proprio'] = batch['proprio'].clone()
       batch['lcd'][:, i] = (dec['lcd'].probs > 0.5).float()
       batch['proprio'][:, i] = dec['proprio'].mean
+      if 'z' in batch:
+        batch['z'] = z
     return batch
 
   @torch.no_grad()

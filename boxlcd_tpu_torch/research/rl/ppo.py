@@ -345,10 +345,18 @@ class PPO(RLAlgo):
     the step on its rows with its replicas. Returns (wb, ptr, ep_t, goals,
     traj, last_v), traj as in `rollout`.
 
+    A model with an `encode_window` hook (FBT) has each shard's window
+    batch carry the window's codes under 'z', made by its replica at entry
+    and at each timeout, and sliding with the frames: `onestep` then
+    encodes only the frame the window gained. The returned window batch
+    carries no codes.
+
     While tracing is on (boxlcd_tpu_torch.trace) a call is the root span
     `dream.call` over `dream.pools` (when it draws them), one `dream.step`
     a step (`dream.policy`, onestep's `onestep.*`, `dream.env`) and
-    `dream.host_copy` (last_v and the trajectory to the host)."""
+    `dream.host_copy` (last_v and the trajectory to the host). The codes'
+    full encodes run under `dream.call` (entry) and `dream.env` (timeout),
+    in no span of their own."""
     G = self.G
     renv = self.env
     lenv = renv.lenv
@@ -375,6 +383,9 @@ class PPO(RLAlgo):
               self.goal_key: goals['goal:proprio']}
 
     wb, goals = mesh.shard(wb), mesh.shard(goals)
+    cached = hasattr(models[0], 'encode_window')
+    if cached:
+      wb = [dict(w, z=m.encode_window(w)) for w, m in zip(wb, models)]
     traj = [[] for _ in range(mesh.n)]
     for t in range(steps):
       with trace.span('dream.step'):
@@ -416,6 +427,8 @@ class PPO(RLAlgo):
                   POOL, (B,), gen, dev)
               wbi = self._fresh_wb({k: v_[p] for k, v_ in
                                     pools[i]['prompt_pool'].items()})
+              if cached:
+                wbi['z'] = model.encode_window(wbi)
             g = gidx[i] if gidx[i] is not None else parallel.randint(
                 POOL, (B,), gen, dev)
             goals[i] = {k: torch.where(
@@ -430,6 +443,7 @@ class PPO(RLAlgo):
     with trace.span('dream.host_copy'):
       last_v = [to_numpy(ac.value(net_obs(w, ptr, g)))
                 for ac, w, g in zip(acs, wb, goals)]
+      wb = [{k: v_ for k, v_ in w.items() if k != 'z'} for w in wb]
       return (mesh.gather(wb), ptr, ep_t, mesh.gather(goals),
               mesh.gather([_stack(tr) for tr in traj], axis=1),
               mesh.gather(last_v))
