@@ -96,7 +96,7 @@ def train(G, env):
     writer = rutils.make_writer(G.logdir)
     history = []
     data = None
-    if G.model == 'FBT':
+    if G.model in ('FBT', 'FBTDSV2'):
       data = {'z': model.precompute_z(ds.data, unpack=ds.unpack_lcd),
               'action': ds.data['action']}
 

@@ -156,6 +156,13 @@ class FBT(VideoModel):
     return torch.cat(outs)
 
   # -- serving -------------------------------------------------------------------
+  cached_sample = True   # `sample(use_cache=True)` serves through `step`
+
+  def serving(self):
+    """(the transformer `sample` runs, the dtype of its codes and actions):
+    the float64 copy (`serving_net`)."""
+    return self.serving_net(), torch.float64
+
   def serving_net(self):
     """The float64 copy of the transformer that `sample` runs: made once
     and kept until a parameter changes. An optimizer step and a load write
@@ -184,40 +191,51 @@ class FBT(VideoModel):
     trace.count('onestep.frames_encoded', z.shape[0] * z.shape[1])
     return z
 
-  def _encode_frames(self, lcd, proprio):
-    """The BVAE's codes (B, z_size) of B frames, lcd (B, H, W) and proprio
-    (B, p). On the card, the replay of a CUDA graph of the encode at these
-    shapes: one launch where the host would enqueue the encode's hundred
-    kernels, each step. The graph is captured at the first call and again
-    once a BVAE parameter changes (as `serving_net` keys its copy); the
-    codes it returns are its output buffer, valid until the next call."""
-    if lcd.device.type != 'cuda':
-      return self.bvae.encode({'lcd': lcd, 'proprio': proprio}, noise=False)
-    where = (lcd.device, lcd.shape, proprio.shape)
-    key = tuple((p.data_ptr(), p._version)
-                for p in self.bvae.module.parameters())
-    with torch.cuda.device(lcd.device):
+  def _replay(self, where, key, fn, inputs):
+    """fn(*inputs) on the card as the replay of a CUDA graph of fn at these
+    shapes: one launch where the host would enqueue fn's kernels one by
+    one. The graph is captured at the first call for `where` (after three
+    warm-up calls on a side stream) and again once `key` changes; the
+    result is its output buffer, valid until the next replay."""
+    with torch.cuda.device(inputs[0].device):
       g = self._graphs.get(where)
       if g is None or g[0] != key:
         ins = tuple(x.clone(memory_format=torch.contiguous_format)
-                    for x in (lcd, proprio))
-        encode = lambda: self.bvae.encode(  # noqa: E731
-            {'lcd': ins[0], 'proprio': ins[1]}, noise=False)
+                    for x in inputs)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):   # warm-up: workspaces, plans
           for _ in range(3):
-            encode()
+            fn(*ins)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-          out = encode()
+          out = fn(*ins)
         g = self._graphs[where] = (key, graph, ins, out)
       _, graph, ins, out = g
-      ins[0].copy_(lcd)
-      ins[1].copy_(proprio)
+      for dst, src in zip(ins, inputs):
+        dst.copy_(src)
       graph.replay()
     return out
+
+  def _encode_frames(self, lcd, proprio):
+    """The BVAE's codes (B, z_size) of B frames, lcd (B, H, W) and proprio
+    (B, p). On the card, the replay of a CUDA graph of the encode at these
+    shapes (`_replay`): one launch where the host would enqueue the
+    encode's hundred kernels, each step; captured again once a BVAE
+    parameter changes (as `serving_net` keys its copy)."""
+    if lcd.device.type != 'cuda':
+      return self.bvae.encode({'lcd': lcd, 'proprio': proprio}, noise=False)
+    key = tuple((p.data_ptr(), p._version)
+                for p in self.bvae.module.parameters())
+    return self._replay(
+        (lcd.device, lcd.shape, proprio.shape), key,
+        lambda f, p: self.bvae.encode({'lcd': f, 'proprio': p}, noise=False),
+        (lcd, proprio))
+
+  def transformer(self, z, action):
+    """The transformer's token logits (B, T, z_size) for `onestep`."""
+    return self.module(z, action)
 
   @torch.no_grad()
   def onestep(self, batch, i, gen, temp=1.0, u=None):
@@ -245,7 +263,7 @@ class FBT(VideoModel):
       else:
         z = self.encode_window(batch)
     with trace.span('onestep.fbt'):
-      logits = self.module(z, batch['action'])
+      logits = self.transformer(z, batch['action'])
     with trace.span('onestep.draw'):
       zi = dists.Bernoulli(logits[:, i] / temp).sample(gen, u=u)
     with trace.span('onestep.decode'):
@@ -291,10 +309,10 @@ class FBT(VideoModel):
       start = prompt_n
     z = self.bvae.encode({'lcd': lcd, 'proprio': proprio}, noise=False)
     z[:, start:] = 0.0
-    z = z.double()
-    act = action.double()
-    net = self.serving_net()
-    if use_cache:
+    net, dtype = self.serving()
+    z = z.to(dtype)
+    act = action.to(dtype)
+    if use_cache and self.cached_sample:
       caches = net.empty_cache(n)
       zero_z, zero_a = z.new_zeros((n, self.z_size)), act.new_zeros(
           (n, self.act_n))

@@ -181,7 +181,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      x 25) over the FBT, fit_diag (B 16) over the FIT and FBT, dream_diag
      (1 epoch of 375 dream steps) over the ppo_lenv checkpoint;
      research.main --mode=train --profile=1 of the BVAE for 5 steps, its
-     Chrome trace holding CUDA kernel events.
+     Chrome trace holding CUDA kernel events;
+  19. the DeepSeek-V2 world model at the dream cell's shape (FBTDSV2,
+     DeepSeek-V2-Lite in bfloat16, 128 envs x window 25, the benchmark's
+     weight draw): two onesteps with launches counted from 0, the first
+     capturing the transformer's graph (4 calls of the module: each of
+     the expert kernels 4 x 26 launches), the second replaying it (none),
+     the graph's logits equal the eager module's, ms a step; one MoE
+     layer's routed experts on its router's routes (3,200 tokens) against
+     their plain version within tests/test_torch_dsv2.py's tolerance, one
+     launch each of the GEMM pass and the combine, their device ms beside
+     bound_ms, the plain version's ms and the library's (three
+     torch._grouped_mm); MLA's core (eager torch) beside its bound and
+     SDPA on the rotated q and k.
 
 Prints the card line and the kernels' JSON line before the last line, which
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
@@ -1016,7 +1028,10 @@ LAUNCH_COUNTERS = {'mega_rollout': 'mega_rollout.launches',
                    'traj_raster': 'traj_raster.launches',
                    'lcd_raster': 'lcd_raster.launches',
                    'velocity_solver': 'solver.velocity.launches',
-                   'substep_solver': 'solver.substep.launches'}
+                   'substep_solver': 'solver.substep.launches',
+                   'moe_gate_up': 'moe_gate_up.launches',
+                   'moe_down': 'moe_down.launches',
+                   'moe_combine': 'moe_combine.launches'}
 _LAUNCH_BASE = {}
 
 
@@ -3799,6 +3814,229 @@ def tools_phase(dev, smi, tmp, entry=None):
   return out
 
 
+# -- phase 19: the DeepSeek-V2 world model ------------------------------------
+
+DSV2_SEED = 2147483701      # the weights, drawn as the benchmark draws them
+DSV2_MOE_LAYER = 3
+
+
+def _dsv2_model(dev, tmp):
+  """FBTDSV2 at the dream cell's shape (128 envs, window 25, the cell's
+  BVAE), DeepSeek-V2-Lite in bfloat16, the benchmark's weight draw."""
+  from boxlcd_tpu_torch.research.nets.autoencoders.bvae import BVAE
+  from boxlcd_tpu_torch.research.nets.video_models.fbt_dsv2 import FBTDSV2
+  from boxlcd_tpu_torch.research.rl.main import parse
+  from boxlcd_tpu_torch.research.rl.ppo import PPO
+  from portbench.reference import dsv2_weights
+  G = parse(['--env=Urchin', f'--device={dev}', '--num_envs=128',
+             '--hidden_size=256', '--vel_iters=8', '--pos_iters=4',
+             '--window=25', '--ep_len=100', f'--logdir={tmp}', 'ppo'])
+  with mock.patch.object(research_utils, 'make_writer',
+                         lambda logdir: research_utils.NullWriter()):
+    raw = PPO(G).tenv._env
+  Gm = AttrDict(G, hidden_size=64, nfilter=16, vqD=16, vqK=64, dsv2='',
+                dsv2_precision='bfloat16')
+  torch.manual_seed(0)
+  model = FBTDSV2(raw, Gm, bvae=BVAE(raw, Gm))
+  dsv2_weights.load_into(model.module, DSV2_SEED)
+  return model
+
+
+def _dsv2_window(model, B):
+  g = torch.Generator().manual_seed(2)
+  env, W, dev = model.env, model.block_size, model.device
+  lcd = (torch.rand((B, W, env.lcd_h, env.lcd_w), generator=g) > 0.5) & \
+      (torch.rand((B, W, env.lcd_h, env.lcd_w), generator=g) < 0.2)
+  return {'lcd': lcd.float().to(dev),
+          'proprio': (torch.rand((B, W, model.proprio_n), generator=g)
+                      * 2 - 1).to(dev),
+          'action': (torch.rand((B, W, model.act_n), generator=g)
+                     * 2 - 1).to(dev)}
+
+
+def _kernel_ms(fn, n, names):
+  """{name: device ms a call} of the kernels whose profiler names contain
+  each of `names`, over n calls of fn (warm)."""
+  fn()
+  torch.cuda.synchronize()
+  acts = [torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=acts) as prof:
+    for _ in range(n):
+      fn()
+    torch.cuda.synchronize()
+  out = {k: 0.0 for k in names}
+  for e in prof.profiler.kineto_results.events():
+    if e.device_type() != torch.autograd.DeviceType.CUDA:
+      continue
+    for k in names:
+      if k in e.name():
+        out[k] += e.duration_ns() / 1e6 / n
+  return out
+
+
+def _moe_bound_ms(slots, E, H, I):
+  """The routed experts' least time on an H100 (portbench/yardstick_dsv2's
+  moe_expert_bound): operations at 989 TFLOP/s or bytes at 3.35 TB/s (the
+  experts' weights once, the rows in and out)."""
+  flops = 2.0 * slots * 3 * H * I
+  nbytes = 3.0 * E * H * I * 2 + 2.0 * slots * H * 2
+  return max(flops / 989e12, nbytes / 3.35e12) * 1e3, \
+      'flops' if flops / 989e12 >= nbytes / 3.35e12 else 'bytes'
+
+
+def dsv2_phase(dev, smi, tmp):
+  from boxlcd_tpu_torch.research.nets import dsv2, moe_kernel
+  model = _dsv2_model(dev, tmp)
+  B = 128
+  wb = _dsv2_window(model, B)
+  wb['z'] = model.encode_window(wb)
+  u = torch.rand((B, model.z_size), device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(3))
+  got = {}
+  transformer = model.transformer
+
+  def recorded(z, a):
+    out = transformer(z, a)
+    got.update(z=z.clone(), a=a.clone(), lg=out.clone())
+    return out
+  model.transformer = recorded
+  n_moe = sum(1 for b in model.module.layers if b.moe)
+  # the main path: the first onestep captures the transformer's graph (3
+  # warm-up calls and the capture, each through every layer), the second
+  # replays it and launches none of the module's kernels itself
+  _zero_launches()
+  model.onestep(dict(wb), 7, None, u=u)
+  first = _launches()
+  _zero_launches()
+  model.onestep(dict(wb), 8, None, u=u)
+  second = _launches()
+  torch.cuda.synchronize()
+  want = {k: 4 * n_moe for k in ('moe_gate_up', 'moe_down', 'moe_combine')}
+  for k, v in want.items():
+    if first[k] != v or second[k] != 0:
+      raise AssertionError(f'{k}: {first[k]} launches capturing (want {v}), '
+                           f'{second[k]} replaying (want 0)')
+  log(f'[dsv2] onestep launches capturing {first}, replaying {second}')
+  model.transformer = transformer
+  with torch.no_grad():
+    eager = model.module(got['z'], got['a'])
+  if not torch.equal(eager, got['lg']):
+    raise AssertionError('the graph\'s logits differ from the eager module\'s')
+  step_ms = events_ms(lambda: model.onestep(dict(wb), 8, None, u=u), 5)
+  log(f'[dsv2] onestep at 128 x 25 (graph replay): {step_ms:.3f} ms a step; '
+      f'graph logits equal the eager module\'s')
+
+  # the routed experts of one MoE layer on its own router's routes
+  moe = model.module.layers[DSV2_MOE_LAYER].mlp
+  g = torch.Generator(device=dev).manual_seed(4)
+  N, H = B * model.block_size, model.module.cfg['hidden_size']
+  x = torch.randn((N, H), generator=g, device=dev).bfloat16()
+  res = torch.randn((N, H), generator=g, device=dev).bfloat16()
+  e = moe.experts
+  E, I = e.gate_proj.shape[0], e.gate_proj.shape[1]
+  with torch.no_grad():
+    w, idx = moe.route(x)
+    shared = moe.shared_experts(x)
+    args = (x, w, idx, e.gate_proj, e.up_proj, e.down_proj, shared, res)
+    _zero_launches()
+    got_k, counts = moe_kernel.moe_experts(*args)
+    launches = _launches()
+    plain, _ = moe_kernel.moe_experts_plain(*args)
+  torch.cuda.synchronize()
+  if (launches['moe_gate_up'], launches['moe_down'],
+      launches['moe_combine']) != (1, 1, 1):
+    raise AssertionError(f'moe_experts launched {launches}')
+  # the card test's tolerance (tests/test_torch_dsv2.py): the plain version
+  # sums in another order in float32, so h and y may round to neighbouring
+  # bfloat16 values
+  d = (got_k.float() - plain.float()).abs()
+  rms = plain.float().pow(2).mean().sqrt()
+  bad = int((d > 2 ** -7 * plain.float().abs() + 2 ** -4 * rms).sum())
+  if bad or d.mean() > 2 ** -8 * rms:
+    raise AssertionError(f'moe_experts against its plain version: {bad} '
+                         f'outside, mean {float(d.mean()):.3g}, rms '
+                         f'{float(rms):.3g}')
+  slots = N * idx.shape[1]
+  bound, by = _moe_bound_ms(slots, E, H, I)
+  with torch.no_grad():
+    ks = _kernel_ms(lambda: moe_kernel.moe_experts(*args), 5,
+                    ('moe_gate_up_kernel', 'moe_down_kernel',
+                     '_combine_kernel'))
+    plain_ms = wall_ms(lambda: moe_kernel.moe_experts_plain(*args), 1)
+  gemm_ms = ks['moe_gate_up_kernel'] + ks['moe_down_kernel']
+  lib_ms, lib_note = None, 'torch._grouped_mm absent'
+  grouped = getattr(torch, '_grouped_mm', None)
+  if grouped is not None:
+    order, cnt = moe_kernel.plan(idx, E)
+    xs = x[order // idx.shape[1]]
+    offs = torch.cumsum(cnt, 0, dtype=torch.int32)
+
+    def library():
+      hg = grouped(xs, e.gate_proj.transpose(-2, -1), offs=offs)
+      hu = grouped(xs, e.up_proj.transpose(-2, -1), offs=offs)
+      return grouped(torch.nn.functional.silu(hg) * hu,
+                     e.down_proj.transpose(-2, -1), offs=offs)
+    try:
+      with torch.no_grad():
+        lib_ms = events_ms(library, 5)
+      lib_note = ('three torch._grouped_mm and silu * mul on the sorted '
+                  'rows (the same GEMMs; no gather, no combine)')
+    except RuntimeError as err:
+      lib_note = f'torch._grouped_mm refused: {str(err)[:120]}'
+  log(f'[dsv2] moe_experts at {N} tokens, {slots} slots, {E} experts '
+      f'(busiest {int(counts.max())}, idle {int((counts == 0).sum())}): '
+      f'GEMMs {gemm_ms:.4f} ms (gate/up {ks["moe_gate_up_kernel"]:.4f}, '
+      f'down {ks["moe_down_kernel"]:.4f}) bound_ms={bound:.4f} ({by}; '
+      f'{100 * bound / gemm_ms:.1f}% of it), combine '
+      f'{ks["_combine_kernel"]:.4f} ms; plain {plain_ms:.1f} ms (wall); '
+      f'library {_fmt(lib_ms)} ({lib_note}); max |kernel - plain| '
+      f'{float(d.max()):.3g} (rms {float(rms):.3g})')
+
+  # MLA's core (eager torch, no kernel of the port) beside SDPA on the
+  # rotated q and k, the same function
+  mla = model.module.layers[DSV2_MOE_LAYER].self_attn
+  T = model.block_size
+  with torch.no_grad():
+    h = torch.randn((B, T, H), generator=g, device=dev).bfloat16()
+    q = mla.q_proj(h).view(B, T, mla.nh, mla.dn + mla.dr)
+    c_kv, k_pe = mla.kv_a_proj_with_mqa(h).split([mla.rank, mla.dr], -1)
+    kv = mla.kv_b_proj(mla.kv_a_layernorm(c_kv)).view(
+        B, T, mla.nh, mla.dn + mla.dv)
+    cis = model.module.rope_cis[:T]
+    bias = model.module.causal_bias[:T, :T]
+    core = lambda: dsv2.attend(q, kv, k_pe, cis, bias, mla.scale)
+    qr = torch.cat([q[..., :mla.dn], dsv2.rotate(q[..., mla.dn:], cis)], -1)
+    kr = torch.cat([kv[..., :mla.dn], dsv2.rotate(k_pe, cis)[:, :, None]
+                    .expand(B, T, mla.nh, mla.dr)], -1)
+    qs, ks_, vs = (t.transpose(1, 2) for t in
+                   (qr, kr, kv[..., mla.dn:].contiguous()))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks_, vs, is_causal=True, scale=mla.scale)
+    y_core = core()
+    y_sdpa = sdpa().transpose(1, 2).reshape(B, T, -1)
+    core_ms, sdpa_ms = events_ms(core, 5), events_ms(sdpa, 5)
+  dq = mla.dn + mla.dr
+  flops = 2.0 * B * mla.nh * T * T * (dq + mla.dv)
+  nbytes = 2.0 * (q.numel() + kv.numel() + k_pe.numel() + y_core.numel())
+  att_bound = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+  gap = float((y_core.float() - y_sdpa.float()).abs().max())
+  log(f'[dsv2] MLA core at {B} x {T}, {mla.nh} heads: eager {core_ms:.4f} '
+      f'ms bound_ms={att_bound:.4f} (bytes); library (SDPA on rotated q, '
+      f'k) {sdpa_ms:.4f} ms; max |eager - SDPA| {gap:.3g}')
+  out = {'onestep_ms': step_ms, 'launches_capture': first,
+         'launches_replay': second, 'moe_max_abs_err': float(d.max()),
+         'moe_gemm_ms': gemm_ms, 'moe_gate_up_ms': ks['moe_gate_up_kernel'],
+         'moe_down_ms': ks['moe_down_kernel'],
+         'combine_ms': ks['_combine_kernel'], 'moe_plain_ms': plain_ms,
+         'moe_bound_ms': bound, 'moe_bound_by': by, 'moe_library_ms': lib_ms,
+         'moe_library': lib_note, 'mla_core_ms': core_ms,
+         'mla_bound_ms': att_bound, 'mla_library_ms': sdpa_ms,
+         'mla_sdpa_gap': gap}
+  del model, moe, mla, e
+  torch.cuda.empty_cache()
+  return out
+
+
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument('--out', default=None, help='also write the results here')
@@ -3848,6 +4086,7 @@ def main():
     viz = run('viz', viz_phase, dev, smi, Path(tmp))
     entry = run('entry', entry_points_phase, dev, smi, Path(tmp))
     tools = run('tools', tools_phase, dev, smi, Path(tmp), entry)
+    moe = run('dsv2', dsv2_phase, dev, smi, Path(tmp))
   if only:
     log(f'[done] phases {sorted(phase_s)} in {time.time() - t_start:.1f} s '
         f'(a rehearsal: no result line)')
@@ -3887,7 +4126,21 @@ def main():
       'ms': sk[kind]['ms'], 'plain_ms': sk[kind]['plain_ms'],
       'bound_ms': sk[kind]['bound_ms'], 'bound_by': sk[kind]['bound_by'],
       'library_ms': None,
-  } for kind, line in (('velocity', 528), ('substep', 603))]
+  } for kind, line in (('velocity', 528), ('substep', 603))] + [{
+      'name': name, 'route': 'cuda',
+      'source': 'boxlcd_tpu_torch/csrc/moe_experts.cu',
+      'replaces': None, 'launches': moe['launches_capture'][name],
+      'max_abs_err': moe['moe_max_abs_err'], 'ms': moe[f'{name}_ms'],
+      'plain_ms': moe['moe_plain_ms'], 'bound_ms': moe['moe_bound_ms'],
+      'bound_by': moe['moe_bound_by'], 'library_ms': moe['moe_library_ms'],
+  } for name in ('moe_gate_up', 'moe_down')] + [{
+      'name': 'moe_combine', 'route': 'triton',
+      'source': 'boxlcd_tpu_torch/research/nets/moe_kernel.py',
+      'replaces': None, 'launches': moe['launches_capture']['moe_combine'],
+      'max_abs_err': moe['moe_max_abs_err'], 'ms': moe['combine_ms'],
+      'plain_ms': None, 'bound_ms': None, 'bound_by': None,
+      'library_ms': None,
+  }]
   # phase 17's paths, each counted from 0: the bench lines and the mesh
   # collection (the main path's count stays `launches`)
   paths = {f'bench_{k}': v['launches'] for k, v in entry['bench'].items()}
@@ -3907,7 +4160,7 @@ def main():
         reference=ref, solver=sol, main=main_run, per_step=step_run,
         solver_path=sol_path, vec_env=vec, world_model=wm, evaluation=ev,
         video_models=vm, learned_env=lenv, rl=rl, viz=viz, entry=entry,
-        tools=tools, kernels=kernels,
+        tools=tools, dsv2=moe, kernels=kernels,
         seconds=time.time() - t_start), indent=1, default=str))
   log(f'[done] {time.time() - t_start:.1f} s')
   log(smi)

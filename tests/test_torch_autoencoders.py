@@ -68,9 +68,10 @@ def test_registries_hold_the_jax_models_in_order():
   assert list(ae_map) == list(jae_map) == [
       'BVAE', 'VAE', 'RNLDA', 'ArbiterAE', 'MultiStepArbiter',
       'ObjectLocalizer', 'VQVAE']
-  # all four video models after the seven autoencoders, as in JAX
-  assert list(net_map) == list(jnet_map) == list(ae_map) + [
-      'FBT', 'FIT', 'FRNLD', 'RSSM']
+  # all four video models after the seven autoencoders, as in JAX; then
+  # the port's own FBTDSV2
+  assert list(jnet_map) == list(ae_map) + ['FBT', 'FIT', 'FRNLD', 'RSSM']
+  assert list(net_map) == list(jnet_map) + ['FBTDSV2']
 
 
 def test_converted_state_dict_covers_module(models):

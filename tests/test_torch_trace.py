@@ -22,6 +22,7 @@ from boxlcd_tpu_torch.data.collect import make_mega_rollout_fn
 from boxlcd_tpu_torch.engine import cuda_solver, mega, physics
 from boxlcd_tpu_torch.envs.env import Env
 from boxlcd_tpu_torch.render import cuda_raster, traj_raster
+from boxlcd_tpu_torch.research.nets import moe_kernel
 from boxlcd_tpu_torch.research.scripts.exit_probe import probe_step
 
 # one intra-op thread: the tensors here are small, and where the suite runs
@@ -164,12 +165,16 @@ def test_spanned_wraps_a_function():
 
 
 # the launch counters the five kernel wrappers used to keep as module
-# globals, by the tracer name they count under
+# globals, and the grouped-expert kernels' since, by the tracer name they
+# count under
 LAUNCH_COUNTERS = {'mega_rollout.launches': mega,
                    'traj_raster.launches': traj_raster,
                    'lcd_raster.launches': cuda_raster,
                    'solver.velocity.launches': cuda_solver,
-                   'solver.substep.launches': cuda_solver}
+                   'solver.substep.launches': cuda_solver,
+                   'moe_gate_up.launches': moe_kernel,
+                   'moe_down.launches': moe_kernel,
+                   'moe_combine.launches': moe_kernel}
 # the megakernel's counted instance counts under a name of its own too
 COUNTED = 'mega_rollout.counted_launches'
 

@@ -146,9 +146,11 @@ def test_gru_cell_conversion():
 
 
 def test_registries_match_jax():
-  assert list(video_map) == list(jvideo_map) == ['FBT', 'FIT', 'FRNLD',
-                                                 'RSSM']
-  assert list(net_map) == list(jnet_map) and len(net_map) == 11
+  """JAX's video models in its order, then the port's own FBTDSV2."""
+  assert list(video_map) == list(jvideo_map) + ['FBTDSV2']
+  assert list(jvideo_map) == ['FBT', 'FIT', 'FRNLD', 'RSSM']
+  assert list(net_map) == list(jnet_map) + ['FBTDSV2'] and \
+      len(net_map) == 12
 
 
 def test_gpt_and_gpt_dist():
