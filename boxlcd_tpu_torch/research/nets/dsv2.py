@@ -64,8 +64,10 @@ Spans (boxlcd_tpu_torch.trace): `dsv2.attn` around each layer's attention
 router, experts, residual add), `dsv2.mlp` around the dense layers'. Each
 MoE layer keeps its last token counts on the device (`MoE.counts`);
 `DSV2Module.count_moe` adds them, while tracing, to the counters
-`moe.tokens_routed` (token-expert pairs) and `moe.tokens_busiest` (the
-busiest expert's tokens), summed over layers and calls and read at
+`moe.tokens_routed` (token-expert pairs), `moe.tokens_busiest` (the
+busiest expert's tokens) and `moe.rows_tiled` (the token rows the expert
+kernels' tiles cover, padding included: `moe_kernel.rows_tiled`; routed
+over tiled is the tiling share), summed over layers and calls and read at
 trace.stop(): the eager forward calls it, `FBTDSV2` after each replay of
 its graph.
 """
@@ -452,15 +454,17 @@ class DSV2Module(nn.Module):
 
   def count_moe(self):
     """While tracing, add the MoE layers' last token counts to the
-    counters `moe.tokens_routed` and `moe.tokens_busiest`, on the device
-    (a few launches, no synchronisation)."""
-    buf = trace.world_counts(('moe.tokens_routed', 'moe.tokens_busiest'), 1,
-                             self.causal_bias.device)
+    counters `moe.tokens_routed`, `moe.tokens_busiest` and
+    `moe.rows_tiled`, on the device (a few launches, no
+    synchronisation)."""
+    buf = trace.world_counts(('moe.tokens_routed', 'moe.tokens_busiest',
+                              'moe.rows_tiled'), 1, self.causal_bias.device)
     counts = [b.mlp.counts for b in self.layers if b.moe]
     if buf is None or not counts:
       return
     c = torch.stack(counts)
-    buf[0].add_(torch.stack([c.sum(), c.amax(1).sum()]).to(buf.dtype))
+    buf[0].add_(torch.stack([c.sum(), c.amax(1).sum(),
+                             moe_kernel.rows_tiled(c).sum()]).to(buf.dtype))
 
   def forward(self, z, action):
     B, T, _ = z.shape

@@ -1,7 +1,8 @@
 """The routed experts of a mixture-of-experts layer on the card: the two
 grouped GEMMs over the experts a layer holds (`csrc/moe_experts.cu`,
-CUDA C++: gate and up fused with silu * mul, then down) and the weighted
-combine (`_combine_kernel`, Triton: an elementwise pass and a k-way sum).
+CUDA C++ for Hopper: gate and up fused with silu * mul, then down) and the
+weighted combine (`_combine_kernel`, Triton: an elementwise pass and a
+k-way sum).
 
 They replace no TPU kernel: the JAX package has no mixture of experts.
 They were added for DeepSeek-V2's MoE layers (`dsv2.MoE`): at the dream's
@@ -11,14 +12,15 @@ step and synchronise with the host once a layer for the rows each expert
 takes. What bounds the GEMMs, and their design, is in the CUDA source. The
 routing, the sort of the token-slots by expert and the counts stay on the
 device (`plan`): nothing is read back, so the launch queue never drains.
-The GEMM kernels derive the tile table from the counts (`tile_table`);
-`moe_gate_up_kernel` gathers its rows straight from the layer's input by
-token (no permuted copy) and writes silu(gate) * up once, rounded to
-bfloat16; `moe_down_kernel` writes each slot's output row to the slot's
-place in token order; `_combine_kernel` sums a token's k rows in float32
-with the router's weights and rounds, adds the shared experts' output and
-rounds, adds the residual and rounds, as the published model rounds each
-sum. Tile shapes are fixed (no tuning at set-up).
+The GEMM kernels derive the tile list from the counts (`tile_table`: each
+expert's token tiles, of a width that follows its count; `rows_tiled`
+the rows they cover); `moe_gate_up_kernel` gathers its rows straight from
+the layer's input by token (no permuted copy) and writes silu(gate) * up
+once, rounded to bfloat16; `moe_down_kernel` writes each slot's output
+row to the slot's place in token order; `_combine_kernel` sums a token's k
+rows in float32 with the router's weights and rounds, adds the shared
+experts' output and rounds, adds the residual and rounds, as the published
+model rounds each sum. Tile shapes are fixed (no tuning at set-up).
 
 On the CPU `moe_experts` runs `moe_experts_plain`, the same plan and the
 same arithmetic tile by tile in torch. Launches count under
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 
 from boxlcd_tpu_torch import _build, trace
 
-BM = 128           # the GEMM kernels' row tile (csrc/moe_experts.cu)
+TN = 128           # the most token rows a GEMM tile (csrc/moe_experts.cu)
 COMBINE_BH = 512
 _KERNELS = {}
 _READY = set()     # devices whose kernels have their shared memory set
@@ -59,16 +61,40 @@ def plan(idx, n_experts, counts=None):
   return order, counts
 
 
+def tile_rows(counts):
+  """(each expert's token-tile width, its number of token tiles) for the
+  counts, as the kernels choose them: ceil(c / TN) tiles of
+  ceil(c / tiles) rows rounded up to 8, the last tile the rest (one tile
+  fewer where the rounding leaves nothing for the last); 0 and 0 for an
+  expert with no rows."""
+  most = ((counts + TN - 1) // TN).clamp(min=1)
+  w = ((counts + most - 1) // most + 7) // 8 * 8
+  return w, (counts + w - 1).clamp(min=0) // w.clamp(min=1)
+
+
 def tile_table(counts):
-  """(each expert's cumulative row tiles of BM, its first place): what the
-  kernels compute from the counts."""
-  tiles = (counts + BM - 1) // BM
-  return torch.cumsum(tiles, 0), torch.cumsum(counts, 0) - counts
+  """(each expert's cumulative token tiles, its first place, its tile
+  width): what the kernels compute from the counts. Tile j of expert e
+  holds its rows j * w .. min((j + 1) * w, count) - 1, rounded up to 8
+  rows for the tensor cores."""
+  w, nt = tile_rows(counts)
+  return torch.cumsum(nt, 0), torch.cumsum(counts, 0) - counts, w
+
+
+def rows_tiled(counts):
+  """The token rows the kernels' tiles cover for the counts (..., E),
+  padding included, summed over the last axis: each tile runs the tensor
+  cores over its rows rounded up to 8 (wgmma's N), every full tile the
+  width, the last the rest. On the device, no synchronisation."""
+  w, nt = tile_rows(counts)
+  full = (nt - 1).clamp(min=0) * w
+  return (full + (counts - full + 7) // 8 * 8).sum(-1)
 
 
 def max_row_tiles(slots, experts):
-  """The grid's row tiles: the most any routing can need."""
-  return -(-slots // BM) + experts
+  """The most token tiles any routing of `slots` slots over `experts`
+  experts can give (the kernels' grid is sized from it)."""
+  return -(-slots // TN) + experts
 
 
 def moe_experts_plain(x, w, idx, wg, wu, wd, shared=None, residual=None,
@@ -81,14 +107,15 @@ def moe_experts_plain(x, w, idx, wg, wu, wd, shared=None, residual=None,
   N, k = idx.shape
   E = wg.shape[0]
   order, counts = plan(idx, E, counts)
-  ends, first = (t.tolist() for t in tile_table(counts))
+  ends, first, width = (t.tolist() for t in tile_table(counts))
   y = torch.zeros((N * k, x.shape[1]), dtype=x.dtype, device=x.device)
   for t in range(max_row_tiles(N * k, E)):
     e = sum(1 for v in ends if v <= t)
     if e >= E:
       continue
-    r0 = (t - (ends[e - 1] if e else 0)) * BM
-    rows = torch.arange(r0, min(r0 + BM, int(counts[e])), device=x.device)
+    r0 = (t - (ends[e - 1] if e else 0)) * width[e]
+    rows = torch.arange(r0, min(r0 + width[e], int(counts[e])),
+                        device=x.device)
     slots = order[first[e] + rows]
     xe = x[slots // k].float()
     h = (F.silu(xe @ wg[e].float().T) * (xe @ wu[e].float().T)).to(x.dtype)
@@ -136,14 +163,15 @@ def _lib(device):
                                        [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.moe_experts_launch.restype = ctypes.c_int
     lib.moe_experts_init.restype = ctypes.c_int
-    lib.moe_experts_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.moe_experts_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     lib.moe_experts_tiles.restype = None
-    bm, bk = ctypes.c_int(), ctypes.c_int()
-    lib.moe_experts_tiles(ctypes.byref(bm), ctypes.byref(bk))
-    if bm.value != BM:
-      raise RuntimeError(f'moe_experts.cu tiles {bm.value} rows, the plan '
-                         f'{BM}')
-    lib.bk = bk.value
+    tn, i_mult, h_mult = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.moe_experts_tiles(ctypes.byref(tn), ctypes.byref(i_mult),
+                          ctypes.byref(h_mult))
+    if tn.value != TN:
+      raise RuntimeError(f'moe_experts.cu tiles {tn.value} token rows, the '
+                         f'plan {TN}')
+    lib.i_mult, lib.h_mult = i_mult.value, h_mult.value
   if device not in _READY:
     with torch.cuda.device(device):
       err = lib.moe_experts_init()
@@ -199,9 +227,9 @@ def moe_experts(x, w, idx, wg, wu, wd, shared=None, residual=None,
       raise ValueError(f'moe_experts: shared/residual {t.dtype} '
                        f'{tuple(t.shape)} for x {tuple(x.shape)}')
   lib = _lib(x.device)
-  if H % lib.bk or I % lib.bk:
+  if H % lib.h_mult or I % lib.i_mult:
     raise ValueError(f'moe_experts: hidden {H} and expert width {I} must be '
-                     f'multiples of {lib.bk}')
+                     f'multiples of {lib.h_mult} and {lib.i_mult}')
   order, counts = plan(idx, E, counts)
   h = torch.empty((N * k, I), dtype=x.dtype, device=x.device)
   y = torch.empty((N * k, H), dtype=x.dtype, device=x.device)
@@ -210,7 +238,8 @@ def moe_experts(x, w, idx, wg, wu, wd, shared=None, residual=None,
       h.data_ptr(), y.data_ptr(), order.data_ptr(), counts.data_ptr(), E, k,
       N * k, H, I, torch.cuda.current_stream(x.device).cuda_stream)
   if err != 0:
-    raise RuntimeError(f'moe_experts launch failed: cudaError {err}')
+    raise RuntimeError(f'moe_experts launch failed: {err} (a cudaError, or '
+                       f'-1000 - a CUresult of a tensor map)')
   trace.count('moe_gate_up.launches')
   trace.count('moe_down.launches')
   out = torch.empty_like(x)

@@ -192,7 +192,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      their plain version within tests/test_torch_dsv2.py's tolerance, one
      launch each of the GEMM pass and the combine, their device ms beside
      bound_ms, the plain version's ms and the library's (three
-     torch._grouped_mm); MLA's core (eager torch) beside its bound and
+     torch._grouped_mm), the tiling share (slots over the rows the
+     kernels' tiles cover); MLA's core (eager torch) beside its bound and
      SDPA on the rotated q and k.
 
 Prints the card line and the kernels' JSON line before the last line, which
@@ -3983,11 +3984,13 @@ def dsv2_phase(dev, smi, tmp):
                   'rows (the same GEMMs; no gather, no combine)')
     except RuntimeError as err:
       lib_note = f'torch._grouped_mm refused: {str(err)[:120]}'
+  tiled = int(moe_kernel.rows_tiled(counts))
   log(f'[dsv2] moe_experts at {N} tokens, {slots} slots, {E} experts '
       f'(busiest {int(counts.max())}, idle {int((counts == 0).sum())}): '
       f'GEMMs {gemm_ms:.4f} ms (gate/up {ks["moe_gate_up_kernel"]:.4f}, '
       f'down {ks["moe_down_kernel"]:.4f}) bound_ms={bound:.4f} ({by}; '
-      f'{100 * bound / gemm_ms:.1f}% of it), combine '
+      f'{100 * bound / gemm_ms:.1f}% of it); tiles cover {tiled} rows, '
+      f'tiling share {slots / tiled:.4f}; combine '
       f'{ks["_combine_kernel"]:.4f} ms; plain {plain_ms:.1f} ms (wall); '
       f'library {_fmt(lib_ms)} ({lib_note}); max |kernel - plain| '
       f'{float(d.max()):.3g} (rms {float(rms):.3g})')
@@ -4029,6 +4032,7 @@ def dsv2_phase(dev, smi, tmp):
          'moe_down_ms': ks['moe_down_kernel'],
          'combine_ms': ks['_combine_kernel'], 'moe_plain_ms': plain_ms,
          'moe_bound_ms': bound, 'moe_bound_by': by, 'moe_library_ms': lib_ms,
+         'moe_rows_tiled': tiled, 'moe_tiling_share': slots / tiled,
          'moe_library': lib_note, 'mla_core_ms': core_ms,
          'mla_bound_ms': att_bound, 'mla_library_ms': sdpa_ms,
          'mla_sdpa_gap': gap}

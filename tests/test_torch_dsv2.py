@@ -7,12 +7,15 @@ On the CPU, at a small size (hidden 64, 4 heads, kv_lora 16, nope/rope/v
 against the reference on seeded weights, the router, the YaRN table at the
 published settings, MLA's core against SDPA, the MoE layer's expert range
 split in two halves, the kernel's plain version (its tile table) against the
-layer's loop, `onestep` with carried codes against the full window, `sample`
-without the float64 copy, the spans and counters, the reference's imports.
+layer's loop, the tile table at ragged counts, `onestep` with carried codes
+against the full window, `sample` without the float64 copy, the spans and
+counters, the reference's imports.
 
 Marked `cuda` (run on the card: `python -m pytest tests/test_torch_dsv2.py
 -m cuda`): the expert kernels against per-expert bfloat16 `torch.mm` at the
-published widths under skewed routing; the MoE layer and a whole `onestep`
+published widths under skewed and ragged routing and over a held range of
+experts, and captured in a CUDA graph replayed with other routings; the MoE
+layer and a whole `onestep`
 at the dream cell's shape (128 envs, window 25, DeepSeek-V2-Lite) with no
 host synchronisation; `onestep`'s logits there against the float32
 reference within the cell's limits (portbench/limits/).
@@ -215,9 +218,9 @@ def test_kernel_plan_covers_skewed_routing():
   assert counts.tolist()[0] == N and counts.tolist()[6] == 0
   assert torch.equal(idx.reshape(-1)[order].sort().values,
                      idx.reshape(-1)[order])         # sorted by expert
-  tile_end, first = moe_kernel.tile_table(counts)
-  assert tile_end.tolist()[0] == math.ceil(N / moe_kernel.BM)
-  assert first.tolist()[1] == N
+  tile_end, first, width = moe_kernel.tile_table(counts)
+  assert width.tolist()[0] == 104            # 300 rows: 3 tiles of 104
+  assert tile_end.tolist()[0] == 3 and first.tolist()[1] == N
   assert tile_end[-1] <= moe_kernel.max_row_tiles(N * k, 8)
   e = m.experts
   for held in ((0, 8), (2, 7)):
@@ -235,6 +238,66 @@ def test_kernel_plan_covers_skewed_routing():
         x, wl, il, ee.gate_proj, ee.up_proj, ee.down_proj)
     assert torch.allclose(got, want, atol=2e-6)
     assert cnt.sum() == idx.numel() and torch.equal(cnt, mm.counts)
+
+
+RAGGED = [0, 1, 7, 8, 9, 63, 64, 65, 127, 128, 129, 255, 256, 257, 300,
+          1100]
+
+
+@pytest.mark.parametrize('counts', [
+    RAGGED, RAGGED[::-1], [0] * 5 + [19200] + [0] * 2, [0, 0, 0],
+    [300 + e % 7 for e in range(64)]],
+    ids=['ragged', 'ragged-reversed', 'one-expert', 'none', 'lite'])
+def test_tile_table_covers_each_slot_once(counts):
+  """The kernels' tile list (`tile_table`) at ragged counts: each expert's
+  token tiles hold its rows once each, in order, at most TN a tile, all
+  but the last of the width; `rows_tiled` is the sum of the tiles' rows
+  rounded up to 8 (wgmma's N); `max_row_tiles` bounds the tiles; the plain
+  version's loop visits the same tiles."""
+  c = torch.tensor(counts, dtype=torch.int32)
+  ends, first, width = (t.tolist() for t in moe_kernel.tile_table(c))
+  tiles, covered, start = [], 0, 0
+  for e, n in enumerate(counts):
+    nt = ends[e] - start
+    start = ends[e]
+    assert first[e] == sum(counts[:e])
+    rows = [min(width[e], n - j * width[e]) for j in range(nt)]
+    assert all(0 < r <= moe_kernel.TN for r in rows)
+    assert sum(rows) == n and (nt == 0) == (n == 0)
+    assert all(r == width[e] for r in rows[:-1]) and width[e] % 8 == 0
+    if n:
+      assert nt <= -(-n // moe_kernel.TN)    # no more tiles than TN needs
+    tiles += [(e, j) for j in range(nt)]
+    covered += sum(-(-r // 8) * 8 for r in rows)   # wgmma's N a tile
+  assert int(moe_kernel.rows_tiled(c)) == covered
+  assert moe_kernel.rows_tiled(torch.stack([c, c])).tolist() == [covered] * 2
+  assert len(tiles) <= moe_kernel.max_row_tiles(sum(counts), len(counts))
+  if counts == RAGGED:       # by hand: 2,769 rows in 2,816 (129: 72 + 64;
+    assert covered == 2816   # 257: 3 x 88; 1,100: 8 x 128 + 80)
+  if not covered:           # no slots: no rows for the plain version
+    return
+  # the plain version visits each tile once: route each expert's rows to
+  # it and count the rows its loop multiplies by the gate and up weights
+  idx = torch.repeat_interleave(torch.arange(len(counts)), c)[:, None]
+  seen = []
+  real_mm = torch.Tensor.__matmul__
+
+  def count_rows(a, b):
+    if a.shape[-1] == 4 and b.shape[0] == 4:       # the gate product
+      seen.append(a.shape[0])
+    return real_mm(a, b)
+  E = len(counts)
+  wg = torch.zeros((E, 2, 4))
+  wd = torch.zeros((E, 4, 2))
+  x = torch.zeros((int(c.sum()), 4))
+  w = torch.ones_like(idx, dtype=torch.float32)
+  try:
+    torch.Tensor.__matmul__ = count_rows
+    moe_kernel.moe_experts_plain(x, w, idx, wg, wg, wd)
+  finally:
+    torch.Tensor.__matmul__ = real_mm
+  want = [min(width[e], counts[e] - j * width[e]) for e, j in tiles]
+  assert sorted(seen) == sorted(want * 2)     # gate and up, a tile each
 
 
 def _fbt(tmp_path, monkeypatch, args, widths, dsv2_cfg, precision,
@@ -328,6 +391,10 @@ def test_spans_and_counters():
   c = rec['counters']
   assert c['moe.tokens_routed'] == 2 * 2 * T * 2      # layers x tokens x k
   assert 0 < c['moe.tokens_busiest'] <= 2 * 2 * T
+  # 12 tokens a call, top-2: an expert's rows fit one tile, rounded up to 8
+  routed = [b.mlp.counts for b in m.layers if b.moe]
+  assert c['moe.rows_tiled'] == sum(int(((r + 7) // 8 * 8).sum())
+                                    for r in routed)
   with torch.no_grad():                               # off: no counting
     m(z, a)
   assert trace.stop()['counters'] == {}
@@ -370,13 +437,47 @@ def _skewed(N, E, k, device, seed=0):
   return idx.to(device), w.to(device)
 
 
+def _ragged(N, E, k, device, seed=0):
+  """Expert ids (N, k), distinct in a row, whose counts include 0, 1, 7,
+  8, 9, 63, 64, 65, 255, 256, 257 and 1,100 rows, the other experts
+  sharing the rest about evenly; router weights (N, k) float32."""
+  special = [0, 1, 7, 8, 9, 63, 64, 65, 255, 256, 257, 1100]
+  rest = N * k - sum(special)
+  n = E - len(special)
+  counts = special + [rest // n + (e < rest % n) for e in range(n)]
+  g = torch.Generator(device='cpu').manual_seed(seed)
+  perm = torch.randperm(E, generator=g)
+  # each expert's slots dealt to consecutive tokens: distinct in a row
+  flat = torch.repeat_interleave(perm, torch.tensor(counts))
+  idx = flat.view(k, N).T.contiguous()
+  w = torch.rand((N, k), generator=g) / k
+  return idx.to(device), w.to(device)
+
+
+def _experts(dev, E, H=2048, I=1408, seed=1):
+  """x (3,200, H), the experts' bfloat16 weights (N(0, 1/fan_in)), shared
+  and residual rows, drawn on the card."""
+  g = torch.Generator(device=dev).manual_seed(seed)
+  x = torch.randn((3200, H), generator=g, device=dev).bfloat16()
+  wg, wu = (torch.randn((E, I, H), generator=g, device=dev) / H ** .5
+            for _ in range(2))
+  wd = torch.randn((E, H, I), generator=g, device=dev) / I ** .5
+  shared = torch.randn((3200, H), generator=g, device=dev).bfloat16()
+  res = torch.randn((3200, H), generator=g, device=dev).bfloat16()
+  return x, wg.bfloat16(), wu.bfloat16(), wd.bfloat16(), shared, res
+
+
 @pytest.mark.cuda
-def test_expert_kernel_against_torch_mm(cuda_device):
+@pytest.mark.parametrize('routing', ['skewed', 'ragged', 'held'])
+def test_expert_kernel_against_torch_mm(cuda_device, routing):
   """At DeepSeek-V2-Lite's widths (3,200 tokens, 64 experts, top-6,
-  hidden 2048, expert width 1408), routing with an expert of 1,100 rows and
-  four of none, the shared experts' output and the residual added: the
-  kernel against per-expert bfloat16 torch.mm, both against float32. The
-  kernel rounds less (float32 gate and up), so its mean error is at most
+  hidden 2048, expert width 1408), the shared experts' output and the
+  residual added, under three routings: an expert of 1,100 rows and four
+  of none (skewed); counts of 0, 1, 7, 8, 9, 63, 64, 65, 255, 256, 257 and
+  1,100 rows, each side of the tile widths (ragged); a layer holding 40 of
+  the 64 experts, routes to the others weighing 0 (held). The kernel
+  against per-expert bfloat16 torch.mm, both against float32. The kernel
+  rounds less (float32 gate and up), so its mean error is at most
   torch.mm's; both round each output to bfloat16 at the end, so the
   largest error of either is about one rounding of the largest output
   (0.0161 against torch.mm's 0.0160 read on an H100): within a quarter
@@ -387,21 +488,23 @@ def test_expert_kernel_against_torch_mm(cuda_device):
   without the shared experts): within 2^-7 of the value plus 2^-4 of the
   rms everywhere, 2^-8 of the rms on average."""
   dev = cuda_device
-  N, E, k, H, I = 3200, 64, 6, 2048, 1408
-  g = torch.Generator(device=dev).manual_seed(1)
-  x = torch.randn((N, H), generator=g, device=dev).bfloat16()
-  wg, wu = (torch.randn((E, I, H), generator=g, device=dev) / H ** .5
-            for _ in range(2))
-  wd = torch.randn((E, H, I), generator=g, device=dev) / I ** .5
-  wg, wu, wd = wg.bfloat16(), wu.bfloat16(), wd.bfloat16()
-  shared = torch.randn((N, H), generator=g, device=dev).bfloat16()
-  res = torch.randn((N, H), generator=g, device=dev).bfloat16()
-  idx, w = _skewed(N, E, k, dev)
+  N, E, k = 3200, 64, 6
+  x, wg, wu, wd, shared, res = _experts(dev, E)
+  if routing == 'ragged':
+    idx, w = _ragged(N, E, k, dev)
+  else:
+    idx, w = _skewed(N, E, k, dev)
+  if routing == 'held':
+    lo, hi = 12, 52
+    mine = (idx >= lo) & (idx < hi)
+    w, idx = torch.where(mine, w, 0.0), (idx - lo).clamp(0, hi - lo - 1)
+    wg, wu, wd = wg[lo:hi], wu[lo:hi], wd[lo:hi]
+    E = hi - lo
   got, counts = moe_kernel.moe_experts(x, w, idx, wg, wu, wd, shared, res)
   torch.cuda.synchronize()
   plain, _ = moe_kernel.moe_experts_plain(x, w, idx, wg, wu, wd, shared, res)
-  f32 = torch.zeros((N, H), device=dev)
-  mm = torch.zeros((N, H), device=dev)
+  f32 = torch.zeros((N, x.shape[1]), device=dev)
+  mm = torch.zeros((N, x.shape[1]), device=dev)
   for e in range(E):
     tok, slot = (idx == e).nonzero(as_tuple=True)
     assert counts[e] == tok.numel()
@@ -415,6 +518,9 @@ def test_expert_kernel_against_torch_mm(cuda_device):
     yf = (torch.nn.functional.silu(xf @ wg[e].float().T) *
           (xf @ wu[e].float().T)) @ wd[e].float().T
     f32.index_add_(0, tok, yf * w[tok, slot, None])
+  if routing == 'ragged':
+    assert {0, 1, 7, 8, 9, 63, 64, 65, 255, 256, 257, 1100} <= \
+        set(counts.tolist())
   mm = (mm.bfloat16().float() + shared.float()).bfloat16().float()
   mm = (res.float() + mm).bfloat16().float()
   f32 = f32 + shared.float() + res.float()
@@ -426,6 +532,45 @@ def test_expert_kernel_against_torch_mm(cuda_device):
   assert (d <= 2 ** -7 * plain.float().abs() + 2 ** -4 * rms).all()
   assert d.mean() <= 2 ** -8 * rms
   assert counts.sum() == idx.numel()
+
+
+@pytest.mark.cuda
+def test_expert_kernel_replays_in_a_graph_with_new_routing(cuda_device):
+  """The kernels captured in a CUDA graph (their tensor maps hold the
+  graph pool's h and the weights; the tile list comes from the counts on
+  the device) and replayed with other routings written into the same
+  input buffers: each replay equals the eager call on its routing, bit
+  for bit (each output is summed in one fixed order)."""
+  dev = cuda_device
+  N, E, k = 3200, 64, 6
+  x, wg, wu, wd, shared, res = _experts(dev, E)
+  routings = [_skewed(N, E, k, dev), _ragged(N, E, k, dev),
+              _skewed(N, E, k, dev, seed=5), _ragged(N, E, k, dev, seed=6)]
+  idx, w = (t.clone() for t in routings[0])
+  counts = torch.zeros(E, dtype=torch.int32, device=dev)
+
+  def call():
+    return moe_kernel.moe_experts(x, w, idx, wg, wu, wd, shared, res,
+                                  counts)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    call()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out, _ = call()
+  for ri, rw in routings[1:] + routings[:1]:
+    idx.copy_(ri)
+    w.copy_(rw)
+    graph.replay()
+    torch.cuda.synchronize()
+    got, got_counts = out.clone(), counts.clone()
+    want, want_counts = moe_kernel.moe_experts(x, rw, ri, wg, wu, wd, shared,
+                                               res)
+    torch.cuda.synchronize()
+    assert torch.equal(got_counts, want_counts)
+    assert torch.equal(got, want)
 
 
 def _cell_model(tmp_path, monkeypatch, dev):
